@@ -1,0 +1,659 @@
+"""LidarOdometry -- the front-end module on tensors (port of the main path
+of ``mola_fe_lidar_tpu/frontend/odometry.py``).
+
+Per scan (``_process``): time gate -> generators (host -> device ingest)
+-> the scan step (filters with the damped deskew twist, then the coarse-
+to-fine ICP against the rolling local map or the previous scan) -> ONE
+readback of the packed result -> resilience gates (weak map align falls
+back to scan-to-scan; unphysical steps hold the motion model) -> twist and
+odometry bookkeeping -> keyframe decision -> factor emission and the local-
+map rebuild -> the localization advert.
+
+Ported: the fused (non-pipelined) scan step, scan-to-map and scan-to-scan
+odometry, the hash-built ``DeviceLocalMap``. Settings that select anything
+else raise ``NotImplementedError`` from :meth:`LidarOdometry.initialize`,
+naming the ROADMAP item that ports it -- in particular a non-empty
+nearby-keyframe / loop-closure window, the pipelined scan step and in-loop
+deskew.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..cloud.metric_map import MetricMap
+from ..filters.base import FilterPipeline
+from ..filters.generators import apply_generators, generators_from_config
+from ..filters.pipeline import FilterDeskew
+from ..geometry import se3, se3_np
+from ..models.config import AlignKind
+from ..models.icp import (_CAND_KINDS, _CAND_KNN_KINDS, ICPResult, align_pipeline,
+                          check_params)
+from ..utils.config import DEG2RAD, yaml_get
+from .backend import (AdvertiseLocalization, FactorRelativePose3, HostPose,
+                      ProposeKFInput)
+from .icp_config import icp_stages_from_config
+from .local_map import DeviceLocalMap
+from .module_base import MODULE_REGISTRY, FrontEndBase, RawObservation
+from .pose_graph import PoseGraph, make_pose_graph
+
+_PORTED_FILTERS = ("FilterDeskew", "FilterEdgesPlanes",
+                   "mola::lidar_segmentation::FilterEdgesPlanes")
+_PORTED_GENERATORS = ("GeneratorRawPoints", "mp2p_icp_filters::Generator")
+
+
+def _pack_icp_result(res: ICPResult) -> torch.Tensor:
+    """One f32 vector per scan, so the host reads the result back once."""
+    return torch.cat([
+        res.pose.R.reshape(9), res.pose.t.reshape(3), res.cov.reshape(36),
+        torch.stack([res.quality.to(torch.float32),
+                     res.n_iterations.to(torch.float32),
+                     res.term_reason.to(torch.float32)]),
+    ])
+
+
+@dataclass
+class ICPOutput:
+    success: bool
+    goodness: float
+    found_pose_to_wrt_from: HostPose  # f32 numpy
+    cov: np.ndarray
+    n_iterations: int = 0
+
+
+def _unpack_icp_result(flat: np.ndarray) -> ICPOutput:
+    R = np.asarray(flat[:9], np.float64).reshape(3, 3)
+    t = np.asarray(flat[9:12], np.float64)
+    quality = float(flat[48])
+    return ICPOutput(
+        success=bool(np.isfinite(quality)),
+        goodness=quality if np.isfinite(quality) else 0.0,
+        found_pose_to_wrt_from=HostPose(R.astype(np.float32), t.astype(np.float32)),
+        cov=np.asarray(flat[12:48], np.float64).reshape(6, 6),
+        n_iterations=int(flat[49]))
+
+
+def _np_pose(p: HostPose) -> Tuple[np.ndarray, np.ndarray]:
+    # project the device f32 rotation back onto SO(3) before it chains
+    # into world/accum state and graph edges (see the reference)
+    return (se3_np.orthonormalize(np.asarray(p.R, np.float64)),
+            np.asarray(p.t, np.float64))
+
+
+def _f32_pose(R, t) -> HostPose:
+    return HostPose(np.asarray(R, np.float32), np.asarray(t, np.float32))
+
+
+@dataclass
+class LidarOdometryParameters:
+    """The ported tunables; defaults and meaning as in the reference's
+    ``LidarOdometryParameters``."""
+
+    min_time_between_scans: float = 0.2
+    min_dist_xyz_between_keyframes: float = 1.0
+    min_rotation_between_keyframes: float = 30.0 * DEG2RAD
+    min_icp_goodness: float = 0.4
+    min_dist_to_matching: float = 6.0
+    max_dist_to_matching: float = 12.0
+    max_dist_to_loop_closure: float = 30.0
+    max_KFs_local_graph: int = 50000
+    max_queue_length: int = 10
+    deskew_twist_smoothing: float = 0.5
+    deskew_max_accel: float = 10.0
+    deskew_max_rot_accel: float = 5.0
+    deskew_twist_max_age: int = 5
+    odometry_reference: str = "last_scan"
+    local_map_keyframes: int = 10
+    local_map_capacity_mult: Any = 4
+    local_map_dedup_voxel: float = 0.25
+    local_map_reseed_after: int = 10
+    local_map_min_abs_step_trans: float = 5e-5
+    local_map_min_abs_step_rot: float = 1e-5
+    local_map_max_match_distance: float = 0.0
+    local_map_cand_k: int = 4
+    local_map_cand_knn: bool = False
+    local_map_max_iterations: int = 0
+    local_map_nn_backend: str = ""
+    local_map_quality_max_points: int = 8192
+    local_map_tight_requires_prior: bool = True
+    local_map_cand_motion_trans: float = 0.0
+    local_map_cand_motion_rot: float = 0.0
+    local_map_gn_inner: int = 0
+    local_map_build_mode: str = "sort"
+    max_sensor_speed: float = 30.0
+    max_sensor_rot_rate: float = 2.0
+
+
+# settings of the reference that select paths this port does not have yet:
+# (key, default, "is ported" test, ROADMAP item)
+_UNPORTED = (
+    ("pipelined_scan_step", True, lambda v: not v,
+     "Queue 1 item 10 (pipelined split scan step)"),
+    ("fused_scan_step", True, bool, "Queue 1 item 10 (unfused scan step)"),
+    ("deskew_in_loop", False, lambda v: not v, "Queue 1 item 5 (in-loop deskew)"),
+    ("mesh_data", 1, lambda v: int(v) <= 1, "Queue 1 item 16 (DP/TP meshes)"),
+    ("mesh_model", 1, lambda v: int(v) <= 1, "Queue 1 item 16 (DP/TP meshes)"),
+    ("local_map_device_build", True, bool, "Queue 1 item 9 (host LocalMap)"),
+    ("local_map_min_views", 1, lambda v: int(v) <= 1, "Queue 1 item 9 (host LocalMap)"),
+    ("local_map_async_build", False, lambda v: not v,
+     "Queue 1 item 9 (asynchronous map rebuild)"),
+    ("decimate_to_point_count", 0, lambda v: not v,
+     "Queue 1 item 12 (FilterDecimateToCount)"),
+)
+
+
+@dataclass
+class MethodState:
+    last_obs_tim: Optional[float] = None
+    last_points: Optional[MetricMap] = None
+    twist: np.ndarray = field(default_factory=lambda: np.zeros(6))
+    twist_is_good: bool = False
+    twist_smooth: np.ndarray = field(default_factory=lambda: np.zeros(6))
+    twist_smooth_age: int = 10**9
+    world_R: np.ndarray = field(default_factory=lambda: np.eye(3))
+    world_t: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    local_map: Optional[MetricMap] = None
+    last_kf: Optional[int] = None
+    accum_since_last_kf_R: np.ndarray = field(default_factory=lambda: np.eye(3))
+    accum_since_last_kf_t: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    local_pose_graph: PoseGraph = field(default_factory=make_pose_graph)
+
+
+@MODULE_REGISTRY.register("LidarOdometry")
+@MODULE_REGISTRY.register("mola::LidarOdometry")
+class LidarOdometry(FrontEndBase):
+    """LiDAR odometry front-end: scans in -> keyframes + SE(3) factors out.
+    All device tensors live on ``device``."""
+
+    def __init__(self, name: Optional[str] = None, device="cpu"):
+        super().__init__(name)
+        self.device = torch.device(device)
+        self.params = LidarOdometryParameters()
+        self.icp_cases: Dict[AlignKind, tuple] = {}
+        self.generators = []
+        self.filter_pipeline = FilterPipeline()
+        self.state = MethodState()
+        self._state_lock = threading.Lock()
+        self._pipeline_pool = ThreadPoolExecutor(1, thread_name_prefix="scan")
+        self._pending = 0
+        self._pending_lock = threading.Lock()
+        self._last_positive_dt: Optional[float] = None
+        self._local_map_builder: Optional[DeviceLocalMap] = None
+        self._map_fail_streak = 0
+
+    # ------------------------------------------------------------------
+    def initialize(self, cfg: Dict[str, Any]) -> None:
+        """Parse the module's ``params`` block; raise NotImplementedError
+        for any setting whose path is not ported."""
+        c = cfg.get("params", cfg)
+        p = self.params
+        for f in dataclasses.fields(p):
+            if f.name == "min_rotation_between_keyframes":
+                continue
+            v = yaml_get(c, f.name, default=getattr(p, f.name))
+            if f.name == "local_map_capacity_mult":
+                v = {str(k): int(x) for k, x in v.items()} if isinstance(v, dict) else int(v)
+            elif isinstance(f.default, bool):
+                v = bool(v)
+            elif isinstance(f.default, (int, float, str)):
+                v = type(f.default)(v)
+            setattr(p, f.name, v)
+        if "min_rotation_between_keyframes" in c:
+            p.min_rotation_between_keyframes = yaml_get(
+                c, "min_rotation_between_keyframes", deg_to_rad=True)
+        if p.odometry_reference not in ("last_scan", "local_map"):
+            raise ValueError(f"odometry_reference must be last_scan|local_map, "
+                             f"got {p.odometry_reference!r}")
+        for key, default, ported, item in _UNPORTED:
+            if not ported(yaml_get(c, key, default=default)):
+                raise NotImplementedError(f"{key}={c[key]!r} is not ported (ROADMAP {item})")
+        # nearby-keyframe and loop-closure checks consider keyframes at a
+        # graph distance d with min_dist_to_matching <= d <= max(max_dist_*);
+        # the port runs only configurations where that window is empty
+        if max(p.max_dist_to_matching, p.max_dist_to_loop_closure) >= p.min_dist_to_matching:
+            raise NotImplementedError(
+                "nearby-keyframe / loop-closure search is not ported (ROADMAP "
+                "Queue 1 item 11): set max_dist_to_matching and "
+                "max_dist_to_loop_closure below min_dist_to_matching")
+        if p.odometry_reference == "local_map" and p.local_map_build_mode != "hash":
+            raise NotImplementedError(
+                f"local_map_build_mode={p.local_map_build_mode!r} is not ported "
+                "(ROADMAP Queue 1 item 9: sort map build)")
+
+        self.icp_cases = {}
+        for key, kind in (("icp_settings_with_vel", AlignKind.LIDAR_ODOMETRY),
+                          ("icp_settings_without_vel", AlignKind.NEARBY_ALIGN),
+                          ("icp_settings_loop_closure", AlignKind.LOOP_CLOSURE)):
+            if c.get(key):
+                self.icp_cases[kind] = icp_stages_from_config(c[key])
+        if not self.icp_cases:
+            raise NotImplementedError(
+                "the built-in ICP presets are not ported (ROADMAP Queue 1 item 8): "
+                "configure icp_settings_with_vel")
+        for kind in AlignKind:
+            self.icp_cases.setdefault(kind, next(iter(self.icp_cases.values())))
+        # every stage the odometry can run (loop-closure stages never run)
+        for kind in (AlignKind.LIDAR_ODOMETRY, AlignKind.NEARBY_ALIGN):
+            for for_map in (False, True):
+                for stage in self._stages_for(kind, for_map):
+                    check_params(stage)
+
+        gen_cfg = c.get("pointcloud_generator")
+        filt_cfg = list(c.get("pointcloud_filter") or [])
+        if filt_cfg == [] and "pointcloud_filter_class" in c:
+            filt_cfg = [{"class": c["pointcloud_filter_class"],
+                         "params": c.get("pointcloud_filter_params", {})}]
+        for item, ported, what in ((g, _PORTED_GENERATORS, "generator") for g in gen_cfg or []):
+            if item["class"] not in ported:
+                raise NotImplementedError(f"{what} {item['class']!r} is not ported "
+                                          "(ROADMAP Queue 1 item 12)")
+        for item in filt_cfg:
+            if item["class"] not in _PORTED_FILTERS:
+                raise NotImplementedError(f"filter {item['class']!r} is not ported "
+                                          "(ROADMAP Queue 1 item 12)")
+        self.generators = generators_from_config(gen_cfg, device=self.device)
+        self.filter_pipeline = FilterPipeline.from_config(filt_cfg)
+
+    # ------------------------------------------------------------------
+    def on_new_observation(self, obs: RawObservation):
+        if self.raw_sensor_label and obs.get("sensor_label") != self.raw_sensor_label:
+            return None
+        with self._pending_lock:
+            queued = self._pending
+            self.profiler.register_user_measure("onNewObservation.queue_length", queued)
+            if queued > self.params.max_queue_length:
+                self.profiler.register_user_measure("onNewObservation.drop_observation", 1)
+                self.log.error_throttle(
+                    1.0, "Dropping observation due to pipeline overload (%d queued)", queued)
+                return None
+            self._pending += 1
+        self.profiler.enter("delay_onNewObs_to_process")
+        return self._pipeline_pool.submit(self._process_safe, obs)
+
+    def _process_safe(self, obs: RawObservation) -> None:
+        try:
+            self._process(obs)
+        except Exception:  # noqa: BLE001 -- per-scan error isolation
+            self.log.exception("exception processing scan")
+        finally:
+            with self._pending_lock:
+                self._pending -= 1
+
+    def _process(self, obs: RawObservation) -> None:
+        prof = self.profiler
+        prof.leave("delay_onNewObs_to_process")
+        prof.enter("doProcessNewObservation")
+        try:
+            self._process_scan(obs)
+        finally:
+            prof.leave("doProcessNewObservation")
+
+    def _process_scan(self, obs: RawObservation) -> None:
+        prof = self.profiler
+        pp = self.params
+        tim = float(obs.get("timestamp", 0.0))
+        st = self.state
+        if st.last_obs_tim is not None and tim - st.last_obs_tim < pp.min_time_between_scans:
+            prof.register_user_measure("doProcess.skip_too_soon", 1)
+            return
+
+        prof.enter("doProcess.generators")
+        raw_map = apply_generators(self.generators, obs)
+        prof.leave("doProcess.generators")
+
+        last_points, last_tim = st.last_points, st.last_obs_tim
+        icp_out = None
+        result_is_world = False
+        dt = 0.0
+        if last_points is not None:
+            dt = tim - last_tim if last_tim is not None else 0.0
+            if dt > 1e-3:
+                self._last_positive_dt = dt
+            if st.twist_is_good and dt > 0:
+                gR, gt_ = se3_np.exp(st.twist * dt)
+                kind = AlignKind.LIDAR_ODOMETRY
+            else:
+                gR, gt_ = np.eye(3), np.zeros(3)
+                kind = AlignKind.NEARBY_ALIGN
+            use_map = pp.odometry_reference == "local_map" and st.local_map is not None
+            if use_map:
+                gR, gt_ = se3_np.compose((st.world_R, st.world_t), (gR, gt_))
+                icp_target = st.local_map
+            else:
+                icp_target = last_points
+            # deskew only with the DAMPED twist (see the reference's docs)
+            deskew_twist = (st.twist_smooth if st.twist_smooth_age <= pp.deskew_twist_max_age
+                            else np.zeros(6))
+
+            prof.enter("doProcess.fused_step")
+            this_points, flat = self._scan_step(kind, use_map, raw_map, icp_target,
+                                                gR, gt_, deskew_twist)
+            prof.enter("doProcess.readback_wait")
+            flat = flat.cpu().numpy()  # the single readback
+            prof.leave("doProcess.readback_wait")
+            prof.leave("doProcess.fused_step")
+            if flat[52] < 0.5 or flat[51] < 10.0:
+                prof.register_user_measure("doProcess.drop_insane_scan", 1)
+                self.log.error_throttle(1.0, "Dropping degenerate scan (empty/non-finite)")
+                return
+            icp_out = _unpack_icp_result(flat)
+            icp_out, result_is_world = self._gate(icp_out, use_map, kind, dt,
+                                                  this_points, last_points)
+        else:
+            prof.enter("doProcess.filter")
+            this_points, sanity = self._filter_core(
+                raw_map, torch.zeros(6, dtype=torch.float32, device=self.device))
+            sanity = sanity.cpu().numpy()
+            prof.leave("doProcess.filter")
+            if sanity[1] < 0.5 or sanity[0] < 10.0:
+                prof.register_user_measure("doProcess.drop_insane_scan", 1)
+                self.log.error_throttle(1.0, "Dropping degenerate scan (empty/non-finite)")
+                return
+
+        st.last_points = this_points
+        st.last_obs_tim = tim
+
+        create_keyframe = last_points is None  # first scan
+        if last_points is not None:
+            R, t = _np_pose(icp_out.found_pose_to_wrt_from)
+            if result_is_world:
+                # ICP returned the WORLD pose; bookkeeping uses the relative
+                # pose rel = world_prev^-1 * world_new
+                world_new = (R, np.asarray(t, float))
+                R = st.world_R.T @ world_new[0]
+                t = st.world_R.T @ (world_new[1] - st.world_t)
+                st.world_R, st.world_t = world_new
+            else:
+                st.world_R, st.world_t = se3_np.compose((st.world_R, st.world_t), (R, t))
+            if dt > 0 and icp_out.success:
+                st.twist = se3_np.log(R, t) / dt
+            st.twist_is_good = icp_out.success and icp_out.goodness >= pp.min_icp_goodness
+            self._update_deskew_twist(dt)
+            st.accum_since_last_kf_R, st.accum_since_last_kf_t = (
+                st.accum_since_last_kf_R @ R,
+                st.accum_since_last_kf_R @ t + st.accum_since_last_kf_t)
+            dist = float(np.linalg.norm(st.accum_since_last_kf_t))
+            rot = se3_np.rotation_angle(st.accum_since_last_kf_R)
+            create_keyframe = icp_out.goodness > pp.min_icp_goodness and (
+                dist > pp.min_dist_xyz_between_keyframes
+                or rot > pp.min_rotation_between_keyframes)
+            prof.register_user_measure("icp_latest.goodness", icp_out.goodness)
+            prof.register_user_measure("icp_latest.n_iter", icp_out.n_iterations)
+
+        if create_keyframe:
+            self._create_keyframe(tim, this_points)
+
+        if self.slam_backend is not None and st.last_kf is not None:
+            self.slam_backend.advertise_updated_localization(AdvertiseLocalization(
+                timestamp=tim, reference_kf=st.last_kf,
+                pose=_f32_pose(st.accum_since_last_kf_R, st.accum_since_last_kf_t)))
+        self._prune_local_graph()
+
+    def _gate(self, icp_out: ICPOutput, use_map: bool, kind: AlignKind, dt: float,
+              this_points: MetricMap, last_points: MetricMap):
+        """Resilience gates: a weak or unphysical map align retries scan-to-
+        scan and keeps the better result, and a persistently failing map is
+        dropped; an unphysical result holds the motion model. Returns
+        (output, result_is_world)."""
+        st, pp, prof = self.state, self.params, self.profiler
+        dt_gate = dt if dt > 1e-3 else (self._last_positive_dt or 0.1)
+        max_step = pp.max_sensor_speed * dt_gate
+        max_rot_step = pp.max_sensor_rot_rate * dt_gate
+        motion = (se3_np.exp(st.twist * dt) if (st.twist_is_good and dt > 0)
+                  else (np.eye(3), np.zeros(3)))
+
+        def rel_norm(out, is_world):
+            Rp, tp = _np_pose(out.found_pose_to_wrt_from)
+            if is_world:
+                tp = st.world_R.T @ (tp - st.world_t)
+                Rp = st.world_R.T @ Rp
+            return float(np.linalg.norm(tp)), se3_np.rotation_angle(Rp)
+
+        def jump(out, is_world):
+            tn, ra = rel_norm(out, is_world)
+            return tn > max_step or ra > max_rot_step
+
+        def motion_model_output():
+            return ICPOutput(success=False, goodness=0.0,
+                             found_pose_to_wrt_from=_f32_pose(*motion),
+                             cov=np.eye(6) * 1e6)
+
+        if not use_map:
+            if jump(icp_out, False):
+                prof.register_user_measure("doProcess.reject_unphysical", 1)
+                self.log.warning("odometry align rejected: unphysical step %.1fm/%.2frad "
+                                 "(max %.1fm/%.2frad)", *rel_norm(icp_out, False),
+                                 max_step, max_rot_step)
+                return motion_model_output(), False
+            return icp_out, False
+
+        map_jump = jump(icp_out, True)
+        if not (map_jump or icp_out.goodness < pp.min_icp_goodness):
+            self._map_fail_streak = 0
+            return icp_out, True
+        self._map_fail_streak += 1
+        prof.register_user_measure("doProcess.map_align_weak", 1)
+        if map_jump:
+            self.log.warning("map align rejected: unphysical step %.1fm/%.2frad "
+                             "(max %.1fm/%.2frad)", *rel_norm(icp_out, True),
+                             max_step, max_rot_step)
+        fb = self.run_one_icp(this_points, last_points, *motion,
+                              stages=self.icp_cases[kind], tag="icp_latest_s2s_fallback")
+        out, is_world = icp_out, True
+        if not jump(fb, False) and (map_jump or fb.goodness > icp_out.goodness):
+            out, is_world = fb, False
+        elif map_jump:  # both unphysical: hold the motion model
+            prof.register_user_measure("doProcess.reject_unphysical", 1)
+            out, is_world = motion_model_output(), False
+        if self._map_fail_streak > pp.local_map_reseed_after:
+            self.log.warning("local map failing for %d scans; reseeding at next "
+                             "keyframe", self._map_fail_streak)
+            with self._state_lock:
+                self._local_map_builder = None
+                st.local_map = None
+            self._map_fail_streak = 0
+        return out, is_world
+
+    def _update_deskew_twist(self, dt: float) -> None:
+        """Damped deskew twist: EMA over validated raw estimates plus a
+        physical acceleration clamp."""
+        st, pp = self.state, self.params
+        if dt > 0 and st.twist_is_good:
+            if st.twist_smooth_age > pp.deskew_twist_max_age:
+                st.twist_smooth = np.array(st.twist, np.float64)
+            else:
+                dv = np.array(st.twist, np.float64) - st.twist_smooth
+                span = dt * (1 + st.twist_smooth_age)
+                np.clip(dv[:3], -pp.deskew_max_accel * span, pp.deskew_max_accel * span,
+                        out=dv[:3])
+                np.clip(dv[3:], -pp.deskew_max_rot_accel * span,
+                        pp.deskew_max_rot_accel * span, out=dv[3:])
+                st.twist_smooth = st.twist_smooth + pp.deskew_twist_smoothing * dv
+            st.twist_smooth_age = 0
+        else:
+            st.twist_smooth_age += 1
+
+    def _stages_for(self, kind: AlignKind, for_map: bool):
+        """Stage params of an align; map targets get the module's map-align
+        levers (see the reference's parameter docs)."""
+        stages = self.icp_cases[kind]
+        if not for_map:
+            return stages
+        p = self.params
+        tight = kind == AlignKind.LIDAR_ODOMETRY or not p.local_map_tight_requires_prior
+        out = []
+        for s in stages:
+            matchers = s.matchers
+            if tight and p.local_map_max_match_distance > 0:
+                matchers = tuple(dataclasses.replace(
+                    m, distance_threshold=min(m.distance_threshold,
+                                              p.local_map_max_match_distance))
+                    for m in matchers)
+            if p.local_map_cand_k > 0:
+                matchers = tuple(dataclasses.replace(m, cand_k=p.local_map_cand_k)
+                                 if m.kind in _CAND_KINDS else m for m in matchers)
+            if p.local_map_cand_knn and p.local_map_cand_k > 0:
+                # knn + 3 slack so the between-refresh re-argmin can move
+                matchers = tuple(dataclasses.replace(m, cand_k=max(p.local_map_cand_k, m.knn + 3))
+                                 if m.kind in _CAND_KNN_KINDS else m for m in matchers)
+            if p.local_map_nn_backend:
+                matchers = tuple(dataclasses.replace(m, nn_backend=p.local_map_nn_backend)
+                                 for m in matchers)
+            solver = s.solver
+            step_t = max(s.min_abs_step_trans, p.local_map_min_abs_step_trans)
+            step_r = max(s.min_abs_step_rot, p.local_map_min_abs_step_rot)
+            if p.local_map_gn_inner > 0 and solver.kind == "gauss_newton":
+                ratio = p.local_map_gn_inner / max(solver.max_iterations, 1)
+                step_t, step_r = step_t * ratio, step_r * ratio
+                solver = dataclasses.replace(solver, max_iterations=p.local_map_gn_inner)
+            repl = dict(matchers=matchers, solver=solver,
+                        min_abs_step_trans=step_t, min_abs_step_rot=step_r)
+            if p.local_map_quality_max_points > 0:
+                repl["quality"] = tuple(dataclasses.replace(
+                    q, max_points=(p.local_map_quality_max_points if q.max_points == 0
+                                   else min(q.max_points, p.local_map_quality_max_points)))
+                    for q in s.quality)
+            if tight and p.local_map_max_iterations > 0:
+                repl["max_iterations"] = min(s.max_iterations, p.local_map_max_iterations)
+            if p.local_map_cand_motion_trans > 0:
+                repl["cand_refresh_min_trans"] = p.local_map_cand_motion_trans
+            if p.local_map_cand_motion_rot > 0:
+                repl["cand_refresh_min_rot"] = p.local_map_cand_motion_rot
+            out.append(dataclasses.replace(s, **repl))
+        return tuple(out)
+
+    def _filter_core(self, raw_map: MetricMap, twist: torch.Tensor):
+        """Filters -> (layers, [total valid points, all-finite flag])."""
+        mm = raw_map
+        for f in self.filter_pipeline.filters:
+            mm = f(mm, twist=twist) if isinstance(f, FilterDeskew) else f(mm)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        finite = torch.ones((), dtype=torch.float32, device=self.device)
+        for pc in mm.values():
+            total = total + torch.sum(pc.mask)
+            masked = torch.where(pc.mask[..., None] > 0.5, pc.xyz, torch.zeros_like(pc.xyz))
+            finite = finite * torch.isfinite(torch.sum(masked)).to(torch.float32)
+        return mm, torch.stack([total, finite])
+
+    def _scan_step(self, kind, use_map, raw_map, target, guess_R, guess_t, twist):
+        """Filter + align + pack: the per-scan device work, ending in one
+        f32 vector (51 result values + the 2 sanity values)."""
+        mm, sanity = self._filter_core(
+            raw_map, torch.as_tensor(twist, dtype=torch.float32, device=self.device))
+        guess = se3.Pose(torch.as_tensor(guess_R, dtype=torch.float32, device=self.device),
+                         torch.as_tensor(guess_t, dtype=torch.float32, device=self.device))
+        res = align_pipeline(mm, target, guess, self._stages_for(kind, use_map))
+        return mm, torch.cat([_pack_icp_result(res), sanity])
+
+    # ------------------------------------------------------------------
+    def _create_keyframe(self, tim: float, points: MetricMap) -> None:
+        """Keyframe proposal + odometry factor + local-map update."""
+        st = self.state
+        prof = self.profiler
+        if self.slam_backend is not None:
+            prof.enter("doProcess.addKeyFrame")
+            out = self.slam_backend.add_keyframe(ProposeKFInput(timestamp=tim)).result()
+            prof.leave("doProcess.addKeyFrame")
+            if not out.success:
+                self.log.error("addKeyFrame failed")
+                return
+            kf_id = out.new_kf_id
+        else:
+            kf_id = (st.last_kf + 1) if st.last_kf is not None else 0
+
+        if st.last_kf is not None:
+            rel = _f32_pose(st.accum_since_last_kf_R, st.accum_since_last_kf_t)
+            if self.slam_backend is not None:
+                self.slam_backend.add_factor(FactorRelativePose3(
+                    kf_from=st.last_kf, kf_to=kf_id, rel_pose=rel)).result()
+            with self._state_lock:
+                st.local_pose_graph.insert_edge(st.last_kf, kf_id, st.accum_since_last_kf_R,
+                                                st.accum_since_last_kf_t)
+        else:
+            with self._state_lock:
+                st.local_pose_graph.insert_node(kf_id)
+
+        self.log.info("New KF #%s (dist=%.2fm)", kf_id,
+                      float(np.linalg.norm(st.accum_since_last_kf_t)))
+        st.accum_since_last_kf_R = np.eye(3)
+        st.accum_since_last_kf_t = np.zeros(3)
+        st.last_kf = kf_id
+
+        if self.params.odometry_reference == "local_map":
+            if self._local_map_builder is None:
+                self._local_map_builder = self._make_map_builder()
+            self._local_map_builder.add_keyframe(points, (st.world_R, st.world_t))
+            prof.enter("doProcess.local_map_build")
+            st.local_map = self._local_map_builder.build()
+            prof.leave("doProcess.local_map_build")
+
+    def _make_map_builder(self) -> DeviceLocalMap:
+        """A rolling-map builder holding every layer a matcher or quality
+        evaluator of the odometry stages targets."""
+        keep = set()
+        for kind in (AlignKind.LIDAR_ODOMETRY, AlignKind.NEARBY_ALIGN):
+            for stage in self.icp_cases.get(kind, ()):
+                keep.update(mt.tgt_layer for mt in stage.matchers)
+                keep.update(q.tgt_layer for q in stage.quality)
+        p = self.params
+        return DeviceLocalMap(window=p.local_map_keyframes,
+                              capacity_mult=p.local_map_capacity_mult,
+                              dedup_voxel=p.local_map_dedup_voxel,
+                              keep_layers=keep or None, mode=p.local_map_build_mode)
+
+    def _prune_local_graph(self) -> None:
+        """Keep the local pose graph within ``max_KFs_local_graph`` nodes,
+        dropping the farthest from the newest keyframe (the part of the
+        reference's nearby-keyframe search that applies with an empty
+        search window)."""
+        st, p = self.state, self.params
+        with self._state_lock:
+            graph = st.local_pose_graph
+            if st.last_kf is None or len(graph) <= p.max_KFs_local_graph:
+                return
+            poses, _ = graph.dijkstra_nodes_estimate(st.last_kf)
+            by_dist = sorted(((np.linalg.norm(t_), n) for n, (R_, t_) in poses.items()),
+                             reverse=True)
+            for _, victim in by_dist[: len(graph) - p.max_KFs_local_graph]:
+                graph.remove_node(victim)
+
+    def run_one_icp(self, to_pc: MetricMap, from_pc: MetricMap, guess_R, guess_t,
+                    stages, tag: str = "icp") -> ICPOutput:
+        """Align ``to_pc`` onto ``from_pc`` from the guess; one readback."""
+        self.profiler.enter(f"run_one_icp.{tag}")
+        try:
+            guess = se3.Pose(torch.as_tensor(guess_R, dtype=torch.float32, device=self.device),
+                             torch.as_tensor(guess_t, dtype=torch.float32, device=self.device))
+            res = align_pipeline(to_pc, from_pc, guess, stages)
+            return _unpack_icp_result(_pack_icp_result(res).cpu().numpy())
+        finally:
+            self.profiler.leave(f"run_one_icp.{tag}")
+
+    # ------------------------------------------------------------------
+    def drain(self, timeout: float = 600.0) -> int:
+        """Block until queued scans finish; returns the number still in
+        flight at the timeout (also recorded as ``drain.jobs_abandoned``)."""
+        import time as _time
+        t0 = _time.monotonic()
+        abandoned = 0
+        while _time.monotonic() - t0 < timeout:
+            with self._pending_lock:
+                if self._pending == 0:
+                    break
+            _time.sleep(0.005)
+        else:
+            with self._pending_lock:
+                abandoned = self._pending
+            self.log.warning("drain(): %d scans still queued at timeout", abandoned)
+        self.profiler.register_user_measure("drain.jobs_abandoned", abandoned)
+        return abandoned
+
+    def shutdown(self) -> None:
+        self._pipeline_pool.shutdown(wait=True)

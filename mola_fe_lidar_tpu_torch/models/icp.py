@@ -1,0 +1,336 @@
+"""The ICP engine on tensors (port of ``mola_fe_lidar_tpu/models/icp.py``,
+the matchers and loop shapes of the main path).
+
+Ported: the ``point2plane_normals`` and ``point2line_knn`` matchers, the
+Gauss-Newton solver with its weak prior, the paired-ratio quality with its
+fixed subsample, the candidate cache (top-K refresh every ``cand_refresh``
+iterations, exact re-argmin over the K candidates in between) and the plain
+loop. Nearest-neighbour searches go through the hand-written kernels
+(``ops/knn_kernel.py`` K1, ``ops/nn_kernel.py`` K2), which take their plain
+twins for CPU tensors: every ``nn_backend`` of the reference except
+``"grid"`` is the same exact search here.
+
+The reference runs the whole loop as one ``lax.while_loop``. Here the host
+reads the iteration count and the convergence flag once per block of
+``cand_refresh`` iterations (4 for the plain loop); inside a block,
+converged or over-budget iterations are frozen exactly as the reference's
+``_cand_block`` freezes them, so the iterates are the reference's.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..cloud.metric_map import MetricMap
+from ..geometry import se3
+from ..ops import eigen3, knn_kernel, nn_kernel
+from ..ops.matching import NNResult
+from ..solve import gauss_newton
+from ..solve import quality as quality_mod
+from .config import ICPParams, Matcher
+
+TERM_CONVERGED = 0
+TERM_MAX_ITERS = 1
+_PLAIN_BLOCK = 4  # iterations between host convergence reads, plain loop
+
+_CAND_KINDS = ("point2point", "point2plane_normals")
+_CAND_KNN_KINDS = ("point2plane_knn", "point2line_knn")
+_PORTED_MATCHERS = ("point2plane_normals", "point2line_knn")
+_EXACT_BACKENDS = ("auto", "xla", "fused", "mxu", "pallas")
+
+
+class ICPResult(NamedTuple):
+    pose: se3.Pose
+    cov: torch.Tensor           # f32[6, 6]
+    quality: torch.Tensor       # f32[]
+    n_iterations: torch.Tensor  # i32[]
+    term_reason: torch.Tensor   # i32[]
+
+
+class _Pairings(NamedTuple):
+    p: torch.Tensor  # f32[K,3] source points (untransformed)
+    q: torch.Tensor  # f32[K,3] plane anchors
+    n: torch.Tensor  # f32[K,3] plane normals
+    w: torch.Tensor  # f32[K] weights (0 drops)
+
+
+def _resolve_backend(backend: str) -> None:
+    """Every exact backend of the reference is the same search in the
+    port: K1/K2 on CUDA tensors, their plain twins on CPU tensors."""
+    if backend == "grid":
+        raise NotImplementedError(
+            "nn_backend='grid' is not ported (ROADMAP Queue 1 item 17: the "
+            "grid search is slower than brute force at every measured size)")
+    if backend not in _EXACT_BACKENDS:
+        raise ValueError(f"unknown nn_backend {backend!r}")
+
+
+def check_params(params: ICPParams) -> None:
+    """Raise NotImplementedError for stage settings the port lacks."""
+    for m in params.matchers:
+        if m.kind not in _PORTED_MATCHERS:
+            raise NotImplementedError(
+                f"matcher {m.kind!r} is not ported (ROADMAP Queue 1 item 12)")
+        _resolve_backend(m.nn_backend)
+    if params.solver.kind != "gauss_newton":
+        raise NotImplementedError(
+            f"solver {params.solver.kind!r} is not ported (ROADMAP Queue 1 item 12)")
+    if params.anderson_m > 0:
+        raise NotImplementedError(
+            "Anderson acceleration is not ported (ROADMAP Queue 1 item 12)")
+    if params.cand_refresh_min_trans > 0 or params.cand_refresh_min_rot > 0:
+        raise NotImplementedError(
+            "motion-conditional candidate refresh is not ported (ROADMAP "
+            "Queue 1 item 14: it serves the map localizer)")
+    if params.shard_axis is not None:
+        raise NotImplementedError(
+            "tensor-parallel align is not ported (ROADMAP Queue 1 item 16)")
+    if params.weights.use_scale_outlier_detector or params.weights.use_robust_kernel:
+        raise NotImplementedError(
+            "pairing re-weighting (scale outliers, robust kernels) is not "
+            "ported (ROADMAP Queue 1 item 7: solve/robust.py)")
+    for q in params.quality:
+        if q.kind != "paired_ratio":
+            raise ValueError(f"unknown quality kind {q.kind!r}")
+        if q.symmetric:
+            raise NotImplementedError(
+                "symmetric quality is not ported (ROADMAP Queue 1 item 11: "
+                "loop closure)")
+
+
+def _cand_eligible(m: Matcher) -> bool:
+    if m.cand_k <= 0:
+        return False
+    if m.kind in _CAND_KINDS:
+        return True
+    return m.kind in _CAND_KNN_KINDS and m.cand_k >= m.knn
+
+
+def _c(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous()
+
+
+def _nn_1(sp, src_mask, tgt) -> NNResult:
+    return nn_kernel.nearest_neighbors(_c(sp), _c(src_mask), _c(tgt.xyz), _c(tgt.mask))
+
+
+def _refresh_cands(m: Matcher, pose, src, tgt) -> torch.Tensor:
+    """Top-``cand_k`` candidate indices per source point at ``pose``."""
+    sp = se3.transform(pose, src.xyz)
+    return knn_kernel.knn(_c(sp), _c(src.mask), _c(tgt.xyz), _c(tgt.mask), m.cand_k).idx
+
+
+def _cand_sq_dists(sp, tgt, cand_idx):
+    cand_idx = cand_idx.long()
+    diff = tgt.xyz[cand_idx] - sp[..., None, :]
+    d2 = torch.sum(diff * diff, dim=-1)
+    return torch.where(tgt.mask[cand_idx] > 0.5, d2, torch.full_like(d2, 1e30))
+
+
+def _knn_from_cands(sp, tgt, cand_idx, k: int) -> NNResult:
+    """Exact kNN restricted to the cached candidates (masked TARGETS at
+    ~1e15; masked SOURCE rows are not sentineled -- consumers gate on the
+    source mask, as in the reference)."""
+    d2 = _cand_sq_dists(sp, tgt, cand_idx)
+    vals, j = torch.sort(d2, dim=-1, stable=True)  # ties: lower slot first
+    idx = torch.gather(cand_idx, -1, j[..., :k])
+    return NNResult(idx.to(torch.int32), torch.sqrt(torch.clamp(vals[..., :k], min=0.0)))
+
+
+def _nn_from_cands(sp, tgt, cand_idx) -> NNResult:
+    """Exact re-argmin over the cached candidates (first minimum wins)."""
+    vals, j = torch.min(_cand_sq_dists(sp, tgt, cand_idx), dim=-1)
+    idx = torch.gather(cand_idx, -1, j[..., None])[..., 0]
+    return NNResult(idx.to(torch.int32), torch.sqrt(torch.clamp(vals, min=0.0)))
+
+
+def _matcher_active(m: Matcher, it: torch.Tensor) -> torch.Tensor:
+    act = it >= m.run_from_iteration
+    if m.run_up_to_iteration > 0:
+        act = act & (it <= m.run_up_to_iteration)
+    return act.to(torch.float32)
+
+
+def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
+               cand_idx=None) -> _Pairings:
+    src = src_map[m.src_layer]
+    tgt = tgt_map[m.tgt_layer]
+    sp = se3.transform(pose, src.xyz)
+    act = _matcher_active(m, it)
+    f32 = sp.dtype
+
+    if m.kind == "point2plane_normals":
+        nn = (_nn_from_cands(sp, tgt, cand_idx) if cand_idx is not None
+              else _nn_1(sp, src.mask, tgt))
+        sel = nn.idx.long()
+        q = tgt.xyz[sel]
+        normals = tgt.attrs["normal"][sel]
+        gate = (tgt.attrs["planarity"][sel][..., 0] if "planarity" in tgt.attrs
+                else torch.ones_like(nn.dist))
+        w = src.mask * (nn.dist < m.distance_threshold).to(f32) * gate * act
+        return _Pairings(src.xyz, q, normals, w)
+
+    if m.kind == "point2line_knn":
+        # LOAM-style edge matching: line fit to the kNN neighbourhood,
+        # linearity gate, two plane rows spanning the line's normal plane
+        if cand_idx is not None:
+            nn = _knn_from_cands(sp, tgt, cand_idx, m.knn)
+        else:
+            nn = knn_kernel.knn(_c(sp), _c(src.mask), _c(tgt.xyz), _c(tgt.mask), m.knn)
+        neigh = tgt.xyz[nn.idx.long()]
+        valid = (nn.dist < 1e9).to(f32)
+        cnt = torch.clamp(torch.sum(valid, dim=-1), min=1.0)
+        centroid = torch.sum(neigh * valid[..., None], dim=-2) / cnt[..., None]
+        d = (neigh - centroid[..., None, :]) * valid[..., None]
+        cov = (d.transpose(-1, -2) @ d) / cnt[..., None, None]
+        evs = eigen3.sym_eigenvalues_3x3(cov)
+        dirv = eigen3.largest_eigenvector_3x3(cov, evs)
+        linear = evs[..., 2] >= (1.0 / max(m.plane_eigen_threshold, 1e-3)) * torch.clamp(
+            evs[..., 1], min=1e-9)
+        ex = torch.tensor([1.0, 0.0, 0.0], dtype=f32, device=sp.device).expand_as(dirv)
+        ey = torch.tensor([0.0, 1.0, 0.0], dtype=f32, device=sp.device).expand_as(dirv)
+        a = torch.where(torch.abs(dirv[..., 0:1]) < 0.9, ex, ey)
+        n1 = torch.linalg.cross(dirv, a, dim=-1)
+        n1 = n1 / torch.clamp(torch.linalg.vector_norm(n1, dim=-1, keepdim=True), min=1e-9)
+        n2 = torch.linalg.cross(dirv, n1, dim=-1)
+        w1 = (src.mask * (nn.dist[..., 0] < m.distance_threshold).to(f32)
+              * linear.to(f32) * (torch.sum(valid, dim=-1) >= 3.0).to(f32) * act)
+        n_rows = torch.stack([n1, n2], dim=-2).reshape(-1, 3)
+        return _Pairings(torch.repeat_interleave(src.xyz, 2, dim=-2),
+                         torch.repeat_interleave(centroid, 2, dim=-2),
+                         n_rows, torch.repeat_interleave(w1, 2, dim=-1))
+
+    raise NotImplementedError(f"matcher {m.kind!r} is not ported")
+
+
+def _gather(pose, it, src_map, tgt_map, params: ICPParams, cands=None) -> _Pairings:
+    rows = [_match_one(m, pose, it, src_map, tgt_map,
+                       cands[i] if cands is not None else None)
+            for i, m in enumerate(params.matchers)]
+    return _Pairings(*(torch.cat([getattr(r, f) for r in rows], dim=-2 if f != "w" else -1)
+                       for f in ("p", "q", "n", "w")))
+
+
+def _solve(pose, plane: _Pairings, params: ICPParams, init_pose) -> se3.Pose:
+    s = params.solver
+    prior_pose, prior_w = None, None
+    if s.prior_sigma_trans > 0 or s.prior_sigma_rot > 0:
+        prior_pose = init_pose
+        wt = 1.0 / s.prior_sigma_trans ** 2 if s.prior_sigma_trans > 0 else 0.0
+        wr = 1.0 / s.prior_sigma_rot ** 2 if s.prior_sigma_rot > 0 else 0.0
+        prior_w = torch.tensor([wt] * 3 + [wr] * 3, dtype=torch.float32,
+                               device=pose.t.device)
+    return gauss_newton.point_to_plane_step(
+        pose, plane.p, plane.q, plane.n, plane.w,
+        inner_iterations=s.max_iterations, damping=s.damping,
+        prior_pose=prior_pose, prior_w=prior_w).pose
+
+
+@functools.lru_cache(maxsize=None)
+def _quality_subsample(n: int, keep: int) -> np.ndarray:
+    """The reference's fixed quality subsample (numpy, seed 0xC0FFEE)."""
+    return np.sort(np.random.default_rng(0xC0FFEE).permutation(n)[:keep])
+
+
+def _quality(pose, src_map, tgt_map, params: ICPParams) -> torch.Tensor:
+    """Weighted mean of the paired ratios, forced to 0 when an evaluator
+    falls below its ``required_min``."""
+    dev = pose.t.device
+    if not params.quality:
+        return torch.ones((), device=dev)
+    vals = []
+    gate = torch.ones((), device=dev)
+    for qc in params.quality:
+        src = src_map[qc.src_layer]
+        tgt = tgt_map[qc.tgt_layer]
+        sxyz, smask = src.xyz, src.mask
+        n = sxyz.shape[-2]
+        if qc.max_points and n > qc.max_points:
+            sel = torch.from_numpy(_quality_subsample(n, qc.max_points)).to(dev)
+            sxyz, smask = sxyz[sel], smask[sel]
+        nn = _nn_1(se3.transform(pose, sxyz), smask, tgt)
+        ratio = quality_mod.paired_ratio(nn.dist, smask, qc.threshold_distance)
+        if qc.weight > 0.0:
+            vals.append(qc.weight * ratio)
+        if qc.required_min > 0.0:
+            gate = gate * (ratio >= qc.required_min).to(ratio.dtype)
+    total_w = sum(qc.weight for qc in params.quality if qc.weight > 0.0)
+    if not vals:
+        return gate
+    return gate * functools.reduce(torch.add, vals) / total_w
+
+
+def _freeze(active, new_pose: se3.Pose, pose: se3.Pose) -> se3.Pose:
+    return se3.Pose(torch.where(active, new_pose.R, pose.R),
+                    torch.where(active, new_pose.t, pose.t))
+
+
+def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
+          params: ICPParams) -> ICPResult:
+    """Register ``src_map`` onto ``tgt_map`` from ``init_pose``; the pose
+    maps source-frame points into the target frame."""
+    check_params(params)
+    dev = init_pose.t.device
+    elig = tuple(i for i, m in enumerate(params.matchers) if _cand_eligible(m))
+    uses_cands = bool(elig)
+    block = max(1, params.cand_refresh) if uses_cands else _PLAIN_BLOCK
+
+    def step(pose, it, cands):
+        plane = _gather(pose, it, src_map, tgt_map, params, cands)
+        new_pose = _solve(pose, plane, params, init_pose)
+        # too few effective pairings: stall instead of trusting the solve
+        new_pose = _freeze(torch.sum(plane.w, dim=-1) >= 6.0, new_pose, pose)
+        delta = se3.log(se3.compose(new_pose, se3.inverse(pose)))
+        converged = ((torch.linalg.vector_norm(delta[..., :3], dim=-1) < params.min_abs_step_trans)
+                     & (torch.linalg.vector_norm(delta[..., 3:], dim=-1) < params.min_abs_step_rot))
+        return new_pose, converged
+
+    pose = init_pose
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    n_it, finished = 0, params.max_iterations <= 0
+    while not finished:
+        cands = None
+        if uses_cands:
+            full = [None] * len(params.matchers)
+            for i in elig:
+                m = params.matchers[i]
+                full[i] = _refresh_cands(m, pose, src_map[m.src_layer], tgt_map[m.tgt_layer])
+            cands = tuple(full)
+        for _ in range(block):
+            active = ~done & (it < params.max_iterations)
+            new_pose, converged = step(pose, it, cands)
+            pose = _freeze(active, new_pose, pose)
+            done = done | (active & converged)
+            it = it + active.to(torch.int32)
+        # the one host read per block
+        n_it, is_done = torch.stack([it.to(torch.float32), done.to(torch.float32)]).tolist()
+        finished = is_done > 0.5 or n_it >= params.max_iterations
+
+    # final system at the converged pose -> covariance
+    plane = _gather(pose, it, src_map, tgt_map, params)
+    final = gauss_newton.point_to_plane_step(pose, plane.p, plane.q, plane.n, plane.w,
+                                             inner_iterations=0)
+    cov = gauss_newton.covariance_from_normal_matrix(
+        final.normal_matrix, final.sq_residual_sum, final.weight_sum)
+    q = _quality(pose, src_map, tgt_map, params)
+    term = torch.where(done, TERM_CONVERGED, TERM_MAX_ITERS).to(torch.int32)
+    return ICPResult(pose, cov, q, it, term)
+
+
+def align_pipeline(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
+                   stages: Tuple[ICPParams, ...]) -> ICPResult:
+    """Coarse-to-fine: each stage starts from the previous stage's pose;
+    returns the last stage's result."""
+    if not stages:
+        raise ValueError("align_pipeline needs at least one stage")
+    result = None
+    pose = init_pose
+    for st in stages:
+        result = align(src_map, tgt_map, pose, st)
+        pose = result.pose
+    return result

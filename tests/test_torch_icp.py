@@ -1,0 +1,101 @@
+"""Port parity: ICP (mola_fe_lidar_tpu_torch.models.icp) against the JAX
+reference on the same filtered HDL-64 layers, with the main path's stage
+parameters: the scan-to-scan stages and the scan-to-map stages (candidate
+cache, tight match distance, 15-iteration cap, quality subsample).
+
+Tolerances: both sides run the same f32 algorithm; sums over thousands of
+pairings are taken in another order, so poses agree to ~1e-5 m and a
+pairing can flip where a distance sits within round-off of a threshold.
+Bounds: 1 mm / 0.2 mrad on the pose, equal iteration counts, quality
+within 2 pairings of the quality subsample, covariance within 5 %.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mola_fe_lidar_tpu.cloud.metric_map import PointCloud as JPointCloud
+from mola_fe_lidar_tpu.filters.generators import apply_generators
+from mola_fe_lidar_tpu.geometry import se3 as jse3
+from mola_fe_lidar_tpu.models import icp as jicp
+from mola_fe_lidar_tpu.models.config import AlignKind as JAlignKind
+from mola_fe_lidar_tpu.obs.hdl64 import hdl64_sequence
+from mola_fe_lidar_tpu.frontend.odometry import LidarOdometry as JLidarOdometry
+from mola_fe_lidar_tpu_torch.cloud.metric_map import from_numpy_layers
+from mola_fe_lidar_tpu_torch.geometry import se3
+from mola_fe_lidar_tpu_torch.models import icp
+from mola_fe_lidar_tpu_torch.models.config import AlignKind
+from mola_fe_lidar_tpu_torch.obs.runner import build_module, realtime_config
+
+torch.set_num_threads(1)
+AZIMUTH = 512
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """Filtered layers of scans 0 and 2 (numpy, from the reference filter
+    chain) and both modules' stage parameters."""
+    cfg = realtime_config(scale=AZIMUTH / 2048)
+    port = build_module(cfg)
+    ref = JLidarOdometry()
+    ref.initialize(cfg)
+    obs, gt = hdl64_sequence(n_scans=3, n_azimuth=AZIMUTH)
+    layers = []
+    for o in (obs[0], obs[2]):
+        mm = ref.filter_pipeline(apply_generators(ref.generators, o))
+        layers.append({name: {"xyz": np.asarray(pc.xyz), "mask": np.asarray(pc.mask),
+                              "attrs": {k: np.asarray(v) for k, v in pc.attrs.items()}}
+                       for name, pc in mm.items() if name != "raw"})
+    # ground-truth relative motion 0 -> 2 as the guess, perturbed
+    (R0, p0), (R2, p2) = gt[0], gt[2]
+    rel_R = R0.T @ R2
+    rel_t = R0.T @ (p2 - p0) + np.array([0.15, -0.1, 0.02])
+    yield port, ref, layers, (rel_R.astype(np.float32), rel_t.astype(np.float32))
+    port.shutdown()
+    ref.shutdown()
+
+
+def _jmap(layers):
+    return {n: JPointCloud(jnp.asarray(e["xyz"]), jnp.asarray(e["mask"]),
+                           {k: jnp.asarray(v) for k, v in e["attrs"].items()})
+            for n, e in layers.items()}
+
+
+@pytest.mark.parametrize("for_map", [False, True], ids=["scan_stages", "map_stages"])
+def test_align_pipeline_matches_reference(setup, for_map):
+    port, ref, (tgt, src), (gR, gt_) = setup
+    stages = port._stages_for(AlignKind.LIDAR_ODOMETRY, for_map)
+    jstages = ref._stages_for(JAlignKind.LIDAR_ODOMETRY, for_map)
+    assert [dataclasses.asdict(s) for s in stages] == [dataclasses.asdict(s) for s in jstages]
+    res = icp.align_pipeline(from_numpy_layers(src), from_numpy_layers(tgt),
+                             se3.Pose(torch.from_numpy(gR), torch.from_numpy(gt_)), stages)
+    jres = jicp.align_pipeline(_jmap(src), _jmap(tgt),
+                               jse3.Pose(jnp.asarray(gR), jnp.asarray(gt_)), jstages)
+    dR = res.pose.R.numpy().astype(np.float64).T @ np.asarray(jres.pose.R, np.float64)
+    ang = np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))
+    assert np.linalg.norm(res.pose.t.numpy() - np.asarray(jres.pose.t)) < 1e-3
+    assert ang < 2e-4
+    assert int(res.n_iterations) == int(jres.n_iterations)
+    assert int(res.term_reason) == int(jres.term_reason)
+    n_q = min(s.quality[0].max_points or 10**9 for s in stages[-1:])
+    n_q = min(n_q, int(src["decimated"]["mask"].sum()))
+    assert abs(float(res.quality) - float(jres.quality)) <= 2.0 / n_q
+    np.testing.assert_allclose(res.cov.numpy(), np.asarray(jres.cov), rtol=5e-2,
+                               atol=5e-2 * np.abs(np.asarray(jres.cov)).max())
+
+
+def test_unported_stage_settings_raise(setup):
+    port = setup[0]
+    stage = port._stages_for(AlignKind.LIDAR_ODOMETRY, False)[0]
+    bad = [dataclasses.replace(stage, anderson_m=3),
+           dataclasses.replace(stage, solver=dataclasses.replace(stage.solver, kind="horn")),
+           dataclasses.replace(stage, matchers=(dataclasses.replace(
+               stage.matchers[0], kind="point2point"),)),
+           dataclasses.replace(stage, matchers=(dataclasses.replace(
+               stage.matchers[0], nn_backend="grid"),))]
+    for params in bad:
+        with pytest.raises(NotImplementedError):
+            icp.check_params(params)

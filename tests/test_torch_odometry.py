@@ -1,0 +1,146 @@
+"""Port parity for the slice as a whole: an HDL-64 replay through both
+packages' ``run_replay`` with the realtime KITTI configuration scaled to
+azimuth 256 (16,384 rays), plus the port's standalone import (no JAX, no
+reference package) and its refusal of settings it has not ported.
+
+Replay tolerance: 5 mm / 1 mrad per scan pose (measured agreement on this
+sequence is ~0.1 mm / 0.2 mrad), with equal keyframe and factor counts.
+At 1/8 of the sensor's azimuth resolution the paired-ratio goodness sits
+near 0.3, so both packages run with ``min_icp_goodness: 0.25``; at the
+preset's 0.5 every map align would fall back to scan-to-scan and no second
+keyframe would be made.
+"""
+
+import importlib.util
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mola_fe_lidar_tpu.obs import hdl64 as jhdl64
+from mola_fe_lidar_tpu.obs import runner as jrunner
+from mola_fe_lidar_tpu_torch.obs import hdl64, runner
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parent.parent
+AZIMUTH = 256
+SCANS = 8
+
+
+def _run_accuracy():
+    spec = importlib.util.spec_from_file_location(
+        "run_accuracy", REPO / "scripts" / "run_accuracy.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _reference_config(scale, extra=()):
+    ra = _run_accuracy()
+    return ra.build_cfg(deskew=True, scale=scale, local_map=True,
+                        overrides=ra.REALTIME + runner.SLICE + tuple(extra))
+
+
+@pytest.mark.parametrize("scale", [1.0, AZIMUTH / 2048])
+def test_realtime_config_is_the_reference_construction(scale):
+    assert runner.REALTIME == _run_accuracy().REALTIME
+    assert runner.realtime_config(scale) == _reference_config(scale)
+
+
+def test_simulator_copy_is_the_reference():
+    obs, gt = hdl64.hdl64_sequence(n_scans=2, n_azimuth=64)
+    obs_j, gt_j = jhdl64.hdl64_sequence(n_scans=2, n_azimuth=64)
+    for a, b in zip(obs, obs_j):
+        for key in ("xyz", "valid", "time"):
+            np.testing.assert_array_equal(a[key], b[key])
+    for (R, t), (Rj, tj) in zip(gt, gt_j):
+        np.testing.assert_array_equal(R, Rj)
+        np.testing.assert_array_equal(t, tj)
+
+
+def test_replay_matches_reference():
+    obs, gt = hdl64.hdl64_sequence(n_scans=SCANS, n_azimuth=AZIMUTH)
+    cfg = runner.realtime_config(AZIMUTH / 2048)
+    cfg["params"]["min_icp_goodness"] = 0.25
+    # the reference spends most of its run compiling; replay both at once
+    # (precompile_rare_paths only schedules more reference compiles)
+    with ThreadPoolExecutor(1) as pool:
+        ref_future = pool.submit(jrunner.run_replay, obs, _reference_config(
+            AZIMUTH / 2048, ("min_icp_goodness=0.25", "precompile_rare_paths=false")),
+            gt_poses=gt)
+        res = runner.run_replay(obs, cfg, gt_poses=gt)
+        ref = ref_future.result()
+    try:
+        assert res["jobs_abandoned"] == 0 and ref["jobs_abandoned"] == 0
+        assert res["n_keyframes"] == ref["n_keyframes"] >= 2
+        assert res["n_factors"] == ref["n_factors"]
+        stats = res["module"].profiler.stats()
+        # the map path ran: some map aligns were accepted, not all fell back
+        assert stats["counter:icp_latest.goodness"]["count"] == SCANS - 1
+        assert stats.get("counter:doProcess.map_align_weak", {"total": 0})["total"] < SCANS - 2
+        assert len(res["scan_poses"]) == len(ref["scan_poses"]) == SCANS
+        for (ts, (R, t)), (tsj, (Rj, tj)) in zip(res["scan_poses"], ref["scan_poses"]):
+            assert ts == tsj
+            assert np.linalg.norm(t - tj) < 5e-3
+            dR = R.T @ Rj
+            assert np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)) < 1e-3
+        assert abs(res["ate_rmse_scan"] - ref["ate_rmse_scan"]) < 5e-3
+    finally:
+        res["module"].shutdown()
+        ref["module"].shutdown()
+
+
+_BLOCKED = r"""
+import importlib.abc, json, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib") or top == "mola_fe_lidar_tpu":
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+from mola_fe_lidar_tpu_torch.obs.hdl64 import hdl64_sequence
+from mola_fe_lidar_tpu_torch.obs.runner import realtime_config, run_replay
+obs, gt = hdl64_sequence(n_scans=2, n_azimuth=128)
+res = run_replay(obs, realtime_config(128 / 2048), gt_poses=gt)
+res["module"].shutdown()
+print(json.dumps({"n_keyframes": res["n_keyframes"], "jobs_abandoned": res["jobs_abandoned"],
+                  "n_poses": len(res["scan_poses"]),
+                  "loaded": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in ("jax", "jaxlib", "mola_fe_lidar_tpu"))}))
+"""
+
+
+def test_port_runs_with_jax_and_the_reference_blocked():
+    proc = subprocess.run([sys.executable, "-E", "-c", _BLOCKED, str(REPO)],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"n_keyframes": 1, "jobs_abandoned": 0, "n_poses": 2, "loaded": []}
+
+
+@pytest.mark.parametrize("override", [
+    "pipelined_scan_step=true",
+    "fused_scan_step=false",
+    "deskew_in_loop=true",
+    "max_dist_to_matching=20.0",
+    "max_dist_to_loop_closure=30.0",
+    "local_map_build_mode=sort",
+    "local_map_async_build=true",
+    "local_map_min_views=2",
+    "mesh_data=2",
+    "decimate_to_point_count=4096",
+    "pointcloud_filter.1.params.stats_mode=segment",
+])
+def test_unported_settings_raise(override):
+    cfg = runner.build_config(overrides=runner.REALTIME + runner.SLICE + (override,))
+    with pytest.raises(NotImplementedError):
+        runner.build_module(cfg).shutdown()
