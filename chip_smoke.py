@@ -7,16 +7,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``mola_fe_lidar_tpu_torch/csrc`` and print
-   the build seconds;
-3. hold each kernel (K1 ``knn``, K2 ``nearest_neighbors``) against its plain
-   PyTorch twin on the card, at the main path's shapes and at edge cases,
-   and time both with CUDA events;
+   the build seconds and the ``ptxas`` registers and spills of every
+   instantiation (a spill fails the run);
+3. hold each kernel (K1 ``knn``, K2 ``nearest_neighbors``) bit for bit
+   against its plain PyTorch twin on the card, at the main path's shapes,
+   at edge cases and at every compiled launch plan; per main-path shape,
+   print its launch plan (blocks, cluster, R, and the warps on the busiest
+   SM from the runtime's occupancy query) and time it: ``ms`` (CUDA events over 20 eager
+   calls), ``graph_ms`` (a CUDA graph of 20 calls, no host gaps),
+   ``host_us`` (the wrapper's host time a call), ``bound_ms`` (8 f32
+   operations a pair at 67 TFLOP/s) and its share, ``library_ms``
+   (``torch.cdist`` + ``topk`` / ``min``, a yardstick the port never calls)
+   and ``plain_ms`` (the twin);
 4. simulate full-resolution HDL-64 scans (131,072 rays each) and replay
    them through the port's ``run_replay`` with the KITTI preset at the
    realtime operating point on ``cuda``, with every kernel's launch count
-   reset just before and read just after; check the trajectory.
+   (in all and per shape) reset just before and read just after; check the
+   trajectory.
 
-The second-to-last line is ``{"kernels": [...]}`` and the last line is
+The second-to-last line is ``{"kernels": [...]}`` (one row per kernel at
+its largest main-path shape, with every shape under ``shapes``) and the
+last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -31,6 +42,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 ATE_BOUND_M = 0.5  # scan-rate ATE bound for the replay (metres)
+# the kernels' bound: 8 f32 operations a (source, target) pair (3 sub, 3 mul,
+# 2 add) at the H100 SXM's 67 TFLOP/s f32 peak (NVIDIA data sheet, 700 W)
+FLOP_PER_PAIR = 8
+F32_PEAK_FLOPS = 67e12
 N_SCANS = 30  # full-resolution HDL-64 scans in the replay
 
 
@@ -65,23 +80,139 @@ def make_cloud(gen, n: int, valid_frac: float, device):
 
 
 def compare(kernel_out, plain_out):
-    """(max |dist| error over valid slots, index mismatches not explained by
-    equal distances)."""
+    """(max |dist| error, bit-identical dist and idx)."""
     import torch
-    dk, dp = kernel_out.dist.float(), plain_out.dist.float()
+    dk, dp = kernel_out.dist, plain_out.dist
     err = float((dk - dp).abs().max()) if dk.numel() else 0.0
-    bad = kernel_out.idx != plain_out.idx
-    unexplained = int((bad & (dk != dp)).sum())
-    return err, unexplained
+    same = torch.equal(dk, dp) and torch.equal(kernel_out.idx, plain_out.idx)
+    return err, same
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time per call from replaying a CUDA graph that holds ``reps``
+    calls: no host gaps between the launches."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Median host time of one wrapper call (enqueue only, no sync)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2] * 1e6
+
+
+def ptxas_report(log: str):
+    """(per-instantiation lines, spilling instantiations) from ``-Xptxas -v``."""
+    import re
+    lines, spills, current = [], [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            t = re.search(r"knn_searchILi(\d+)ELi(\d+)E", m.group(1))
+            current = f"K={t.group(1)} R={t.group(2)}" if t else m.group(1)
+        elif line.startswith("== "):
+            current = line[3:]
+        elif current and "spill" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            lines.append(f"{current}: {line.split(':', 1)[-1].strip()}")
+            if any(nums):
+                spills.append(current)
+        elif current and "Used" in line:
+            lines.append(f"{current}: {line.split(':', 1)[-1].strip()}")
+    return lines, spills
+
+
+def tie_cloud(gen, n: int, extent: int, device):
+    """Points on an integer grid in a small box: squared distances are exact
+    integers, so equal distances straddle every part and cluster-rank
+    boundary of any plan."""
+    import torch
+    xyz = torch.randint(-extent, extent + 1, (n, 3), generator=gen).float()
+    mask = (torch.rand((n,), generator=gen) < 0.9).float()
+    xyz = torch.where(mask[:, None] > 0.5, xyz, torch.full_like(xyz, 1e6))
+    return xyz.to(device).contiguous(), mask.to(device).contiguous()
+
+
+def check_plans(device, ks=None) -> int:
+    """Every compiled R at every cluster size and two staging budgets,
+    forced through ``knn_kernel.launch``, and the wrappers with their own
+    plans, bit for bit against the twins: tie-heavy clouds with n not a
+    multiple of any tile, m below one part and m = 1, all targets masked,
+    and a staging budget small enough to stream a part in chunks. ``ks``:
+    the list lengths to check (default: all). Returns the number of forced
+    launches checked."""
+    import torch
+    from mola_fe_lidar_tpu_torch.ops import knn_kernel, matching, nn_kernel
+
+    gen = torch.Generator().manual_seed(1)
+    s, sm = tie_cloud(gen, 777, 3, device)
+    clouds = [("ties", *tie_cloud(gen, 2500, 3, device))]
+    clouds.append(("m=37", *tie_cloud(gen, 37, 3, device)))
+    clouds.append(("m=1", torch.tensor([[1.0, 0.0, 0.0]], device=device),
+                   torch.ones(1, device=device)))
+    clouds.append(("all masked", tie_cloud(gen, 700, 3, device)[0],
+                   torch.zeros(700, device=device)))
+    checked = 0
+    for label, t, tm in clouds:
+        n, m = s.shape[0], t.shape[0]
+        for k in ks or knn_kernel.SUPPORTED_K:
+            want = matching.knn(s, sm, t, tm, k)
+            wants = [((n, k), want, knn_kernel.knn(s, sm, t, tm, k))]
+            if k == 1:  # K2's own entry point as well
+                want1 = matching.nearest_neighbors(s, sm, t, tm)
+                wants.append(((n,), want1, nn_kernel.nearest_neighbors(s, sm, t, tm)))
+            for dims, want, wrapped in wants:
+                if not compare(wrapped, want)[1]:
+                    raise AssertionError(f"{label}: k={k} wrapper {dims} disagrees with the twin")
+                for r in knn_kernel.ROWS:
+                    for c in knn_kernel.CLUSTERS:
+                        for stage in (knn_kernel.STAGE_TARGETS, 64):
+                            plan = knn_kernel.make_plan(n, m, k, r, c, stage)
+                            dist = torch.full(dims, -1.0, device=device)
+                            idx = torch.full(dims, -1, dtype=torch.int32, device=device)
+                            knn_kernel.launch(s, sm, t, tm, k, plan, dist, idx)
+                            torch.cuda.synchronize()
+                            if not (torch.equal(dist, want.dist) and torch.equal(idx, want.idx)):
+                                raise AssertionError(
+                                    f"{label}: k={k} {dims} {plan} disagrees with the twin")
+                            checked += 1
+    return checked
 
 
 def check_kernels(device):
     """Phase 3. Returns the kernel rows of the final JSON line."""
     import torch
-    from mola_fe_lidar_tpu_torch.ops import knn_kernel, matching, nn_kernel
+    from mola_fe_lidar_tpu_torch.ops import cuda_build, knn_kernel, matching, nn_kernel
 
     gen = torch.Generator().manual_seed(0)
-    rows = []
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    lib = cuda_build.library()
     # (kind, k, n sources, m targets, what the main path uses it for)
     main_shapes = [
         ("knn", 4, 8192, 32768, "candidate refresh: decimated -> planes map"),
@@ -92,7 +223,6 @@ def check_kernels(device):
         ("nn", 1, 8192, 32768, "point-to-plane pairing for the covariance"),
         ("nn", 1, 8192, 8192, "scan-to-scan point-to-plane"),
     ]
-    tol = 1e-5  # metres: bit-identical is expected; see compare()
     per_kernel = {"knn": [], "nn": []}
     for kind, k, n, m, what in main_shapes:
         src, sm = make_cloud(gen, n, 0.95, device)
@@ -103,20 +233,43 @@ def check_kernels(device):
         else:
             kern = lambda: nn_kernel.nearest_neighbors(src, sm, tgt, tm)
             plain = lambda: matching.nearest_neighbors(src, sm, tgt, tm)
+        # the same exact function in library calls, on the parked clouds
+        sp, tp = matching._prepare(src, sm, tgt, tm)
+        if kind == "knn":
+            library = lambda: torch.topk(torch.cdist(
+                sp, tp, compute_mode="donot_use_mm_for_euclid_dist"), k, dim=1, largest=False)
+        else:
+            library = lambda: torch.cdist(
+                sp, tp, compute_mode="donot_use_mm_for_euclid_dist").min(dim=1)
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
-        err, unexplained = compare(out_k, out_p)
-        ms = cuda_ms(kern, reps=20)
-        plain_ms = cuda_ms(plain, reps=3, warmup=1)
-        print(f"{kind} k={k} {n}x{m} ({what}): max|ddist|={err:.3g} m, "
-              f"unexplained idx diffs={unexplained}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        if err > tol or unexplained:
-            raise AssertionError(f"{kind} k={k} {n}x{m} disagrees with its twin")
-        per_kernel[kind].append((n, m, k, err, ms, plain_ms))
+        err, same = compare(out_k, out_p)
+        plan = knn_kernel.cached_plan(device, n, m, k)
+        clusters = lib.mola_knn_max_active_clusters(k, plan.rows, plan.cluster, plan.smem)
+        per_sm = max(1, clusters * plan.cluster // sms) if clusters > 0 else 0
+        warps = 4 * min(-(-plan.blocks // sms), per_sm)
+        row = {"kind": kind, "n": n, "m": m, "k": k, "use": what, "max_abs_err": err,
+               "ms": cuda_ms(kern, reps=20), "graph_ms": graph_ms(kern),
+               "host_us": host_us(kern),
+               "bound_ms": n * m * FLOP_PER_PAIR / F32_PEAK_FLOPS * 1e3,
+               "library_ms": cuda_ms(library, reps=5, warmup=1),
+               "plain_ms": cuda_ms(plain, reps=3, warmup=1)}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(f"{kind} k={k} {n}x{m} ({what}): max|ddist|={err:.3g} m, bit-identical={same}; "
+              f"kernel {row['ms']:.4f} ms, graph {row['graph_ms']:.4f} ms, "
+              f"host {row['host_us']:.1f} us, bound {row['bound_ms']:.4f} ms "
+              f"({100 * row['bound_share']:.1f} %), library {row['library_ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms")
+        print(f"  launch: {plan.blocks} blocks, cluster {plan.cluster}, R={plan.rows}, "
+              f"{plan.parts} parts of {plan.part_len}, "
+              f"{plan.smem} B shared, {clusters} clusters resident, "
+              f"{warps} warps on the busiest SM")
+        if not same:
+            raise AssertionError(f"{kind} k={k} {n}x{m} is not bit-identical to its twin")
+        per_kernel[kind].append(row)
 
-    # edge cases: masked sources/targets, M not a multiple of the tile,
-    # fewer valid targets than k, duplicate points, every supported k
+    # edge cases through the wrappers: masked sources/targets, M not a
+    # multiple of the tile, fewer valid targets than k, duplicates
     edge = []
     src, sm = make_cloud(gen, 300, 0.8, device)
     for m in (1, 7, 1000, 1500, 5000):
@@ -136,11 +289,13 @@ def check_kernels(device):
             a = nn_kernel.nearest_neighbors(s, smk, t, tmk)
             b = matching.nearest_neighbors(s, smk, t, tmk)
         torch.cuda.synchronize()
-        err, unexplained = compare(a, b)
-        if err > tol or unexplained or not torch.equal(a.idx, b.idx):
+        if not compare(a, b)[1]:
             raise AssertionError(f"edge case {kind} k={k} m={t.shape[0]} disagrees")
-    print(f"edge cases: {len(edge)} kernel calls agree with the twins")
+    print(f"edge cases: {len(edge)} wrapper calls bit-identical to the twins")
+    print(f"plan battery: {check_plans(device)} forced-plan launches bit-identical "
+          f"to the twins")
 
+    rows = []
     for name, key, source, replaces in (
             ("knn", "knn", "mola_fe_lidar_tpu_torch/csrc/knn.cu",
              "mola_fe_lidar_tpu/ops/pallas_knn.py:47"),
@@ -148,11 +303,13 @@ def check_kernels(device):
              "mola_fe_lidar_tpu/ops/pallas_nn.py:35")):
         runs = per_kernel[key]
         # the headline shape of each kernel is its largest main-path call
-        n, m, k, _, ms, plain_ms = max(runs, key=lambda r: r[0] * r[1])
+        top = max(runs, key=lambda r: r["n"] * r["m"])
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "shape": f"{n}x{m} k={k}",
-                     "max_abs_err": max(r[3] for r in runs),
-                     "ms": ms, "plain_ms": plain_ms})
+                     "replaces": replaces, "shape": f"{top['n']}x{top['m']} k={top['k']}",
+                     "max_abs_err": max(r["max_abs_err"] for r in runs),
+                     **{f: top[f] for f in ("ms", "graph_ms", "host_us", "plain_ms",
+                                            "bound_ms", "bound_share", "library_ms")},
+                     "bound_by": "operations", "shapes": runs})
     return rows
 
 
@@ -172,8 +329,12 @@ def replay(device):
     torch.cuda.reset_peak_memory_stats(device)
     knn_kernel.launches = 0
     nn_kernel.launches = 0
+    knn_kernel.launches_by_shape.clear()
+    nn_kernel.launches_by_shape.clear()
     res = run_replay(obs, cfg, gt_poses=gt, device=device)
     counts = {"knn": knn_kernel.launches, "nearest_neighbors": nn_kernel.launches}
+    by_shape = {"knn": dict(knn_kernel.launches_by_shape),
+                "nearest_neighbors": dict(nn_kernel.launches_by_shape)}
     peak_mib = torch.cuda.max_memory_allocated(device) / 2**20
     module = res["module"]
     try:
@@ -196,6 +357,9 @@ def replay(device):
                 print(f"  {key}: n={s['count']} mean {s['mean_s'] * 1e3:.2f} ms "
                       f"max {s['max_s'] * 1e3:.2f} ms")
         print(f"launch counts during the replay: {counts}")
+        for name, shapes in by_shape.items():
+            for (n, m, k), c in sorted(shapes.items()):
+                print(f"  {name} {n}x{m} k={k}: {c} launches, {c / N_SCANS:.3f} per scan")
         if res["jobs_abandoned"] != 0:
             raise AssertionError("jobs abandoned")
         if res["n_keyframes"] < 3:
@@ -207,7 +371,7 @@ def replay(device):
                 raise AssertionError(f"kernel {name} was not launched by the replay")
     finally:
         module.shutdown()
-    return counts
+    return counts, by_shape
 
 
 def main() -> int:
@@ -231,14 +395,19 @@ def main() -> int:
     cuda_build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {cuda_build.build_seconds:.1f} s)")
-    for line in cuda_build.build_log.splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    lines, spills = ptxas_report(cuda_build.build_log)
+    for line in lines:
+        print("  ptxas:", line)
+    if spills:
+        return fail(f"ptxas reports spills in {spills}")
 
     rows = check_kernels(device)
-    counts = replay(device)
+    counts, by_shape = replay(device)
     for row in rows:
         row["launches"] = counts[row["name"]]
+        for shape in row["shapes"]:
+            c = by_shape[row["name"]].get((shape["n"], shape["m"], shape["k"]), 0)
+            shape["launches_per_scan"] = c / N_SCANS
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,7 @@ def _round_capacity(n: int, multiple: int = 256) -> int:
 
 def from_points(points, capacity: Optional[int] = None,
                 attrs: Optional[Dict[str, np.ndarray]] = None,
-                pad_far: float = 1e6, device="cpu") -> PointCloud:
+                pad_far: float = 1e6, device="cuda") -> PointCloud:
     """Pad (or hash-uniformly subsample, never truncate in input order) an
     ``[n,3]`` array into a fixed-capacity cloud on ``device``."""
     points = np.asarray(points, dtype=np.float32)
@@ -65,7 +65,7 @@ def from_points(points, capacity: Optional[int] = None,
                       torch.from_numpy(m).to(device), out_attrs)
 
 
-def from_numpy_layers(layers: Dict[str, dict], device="cpu") -> MetricMap:
+def from_numpy_layers(layers: Dict[str, dict], device="cuda") -> MetricMap:
     """``{layer: {"xyz", "mask", "attrs": {name: array}}}`` (numpy, e.g. a
     reference MetricMap read back to the host) -> tensors on ``device``."""
     return {
@@ -98,7 +98,7 @@ def save_metric_map(path: str, mm: MetricMap) -> None:
     np.savez_compressed(path, **payload)
 
 
-def load_metric_map(path: str, device="cpu") -> MetricMap:
+def load_metric_map(path: str, device="cuda") -> MetricMap:
     layers: Dict[str, dict] = {}
     with np.load(path) as data:
         for key in data.files:

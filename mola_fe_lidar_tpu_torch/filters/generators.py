@@ -25,7 +25,7 @@ class GeneratorRawPoints:
 
     def __init__(self, target_layer="raw", capacity=None,
                  min_range=0.0, max_range=0.0, keep_intensity=False,
-                 keep_time=False, device="cpu"):
+                 keep_time=False, device="cuda"):
         self.target_layer = target_layer
         self.capacity = capacity
         self.min_range = float(min_range)
@@ -71,7 +71,7 @@ def apply_generators(generators: Sequence, obs: Dict[str, Any]) -> MetricMap:
     return mm
 
 
-def generators_from_config(cfg: List[Dict[str, Any]] | None, device="cpu") -> List:
+def generators_from_config(cfg: List[Dict[str, Any]] | None, device="cuda") -> List:
     from .base import make_generator
 
     return [make_generator(item["class"], {**(item.get("params") or {}), "device": device})

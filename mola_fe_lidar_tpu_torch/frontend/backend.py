@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import itertools
 import threading
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor, wait
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional
 
@@ -85,10 +85,14 @@ class InMemoryBackend(BackEndBase):
         self.factors: List[FactorRelativePose3] = []
         self.localizations: List[AdvertiseLocalization] = []
         self.refused_after_shutdown = 0
+        self._submitted: List[Future] = []
 
     def _submit(self, work, refused):
         try:
-            return self._pool.submit(work)
+            fut = self._pool.submit(work)
+            with self._lock:
+                self._submitted.append(fut)
+            return fut
         except RuntimeError:  # cannot schedule new futures after shutdown
             with self._lock:
                 self.refused_after_shutdown += 1
@@ -120,6 +124,12 @@ class InMemoryBackend(BackEndBase):
                 self.localizations.append(loc)
 
         return self._submit(work, None)
+
+    def flush(self) -> None:
+        """Wait until every call submitted so far is recorded."""
+        with self._lock:
+            pending, self._submitted = self._submitted, []
+        wait(pending)
 
     def shutdown(self):
         self._pool.shutdown(wait=True)

@@ -172,7 +172,7 @@ class LidarOdometry(FrontEndBase):
     """LiDAR odometry front-end: scans in -> keyframes + SE(3) factors out.
     All device tensors live on ``device``."""
 
-    def __init__(self, name: Optional[str] = None, device="cpu"):
+    def __init__(self, name: Optional[str] = None, device="cuda"):
         super().__init__(name)
         self.device = torch.device(device)
         self.params = LidarOdometryParameters()

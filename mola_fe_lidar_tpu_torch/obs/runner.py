@@ -101,7 +101,7 @@ def realtime_config(scale: float = 1.0) -> dict:
                         overrides=REALTIME + SLICE)
 
 
-def build_module(cfg: Optional[dict], backend=None, device="cpu"):
+def build_module(cfg: Optional[dict], backend=None, device="cuda"):
     cfg = cfg or realtime_config()
     module = MODULE_REGISTRY.get(cfg.get("module", "LidarOdometry"))(device=device)
     module.slam_backend = backend if backend is not None else InMemoryBackend()
@@ -149,7 +149,7 @@ def _associate(items, observations, gt_poses):
 
 
 def run_replay(observations, cfg: Optional[dict] = None, gt_poses=None,
-               device="cpu"):
+               device="cuda"):
     """Replay ``observations`` through the front-end on ``device`` (lossless:
     the feed is throttled instead of tripping the overload drop). The first
     ``min(25, n/5)`` scans are a warm-up; ``scans_per_sec_steady`` times
@@ -175,6 +175,7 @@ def run_replay(observations, cfg: Optional[dict] = None, gt_poses=None,
             t_steady = time.perf_counter()
         module.on_new_observation(obs)
     jobs_abandoned = module.drain()
+    backend.flush()  # the last scans' calls may still sit in its queue
     t_end = time.perf_counter()
     steady = ((n_total - warmup) / max(t_end - t_steady, 1e-9)
               if t_steady is not None and n_total > warmup else None)
@@ -214,7 +215,8 @@ def run_replay(observations, cfg: Optional[dict] = None, gt_poses=None,
     return result
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    """The replay CLI's arguments."""
     ap = argparse.ArgumentParser(description="mola_fe_lidar_tpu_torch dataset replay")
     ap.add_argument("--config", type=str, default=None,
                     help="module YAML (default: the realtime KITTI configuration)")
@@ -225,8 +227,13 @@ def main(argv=None) -> int:
     ap.add_argument("--kind", type=str, default="circle", help="synthetic trajectory kind")
     ap.add_argument("--loop-side", type=float, default=0.0,
                     help="loop/circle size; 0 = auto-size so step ~= 1 m")
-    ap.add_argument("--device", type=str, default="cpu", help="torch device, e.g. cuda")
-    args = ap.parse_args(argv)
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="torch device (default cuda; cpu runs the plain twins)")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
 
     cfg = load_yaml(args.config) if args.config else realtime_config()
     if args.dataset == "synthetic":

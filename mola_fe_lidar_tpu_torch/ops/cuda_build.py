@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 The kernels have a plain C interface: ``nvcc`` compiles every ``.cu`` file
-under ``csrc/`` for ``sm_90a`` into one shared library, which is loaded with
-``ctypes``. The build happens at first use, from the repository's sources
+under ``csrc/`` for ``sm_90a`` (one compiler process per file, all started
+together) and links the objects into one shared library, which is loaded
+with ``ctypes``. The build happens at first use, from the repository's sources
 alone, into ``mola_fe_lidar_tpu_torch/build/`` (ignored by git); the file
 name carries a hash of the sources, so an edited kernel is never served
 from a stale library. Nothing here runs at import time: machines without
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -39,13 +40,13 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def _digest() -> str:
+def _digest(flags) -> str:
     h = hashlib.sha256()
     cu, cuh = _sources()
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
@@ -60,45 +61,67 @@ def _nvcc() -> str:
                        "this machine (CUDA tensors need them)")
 
 
-def build() -> Path:
+def build(defines=()) -> Path:
     """Compile ``csrc/*.cu`` into the build directory (once per source
-    hash) and return the library path."""
+    hash and flags) and return the library path. ``defines`` (``-D``
+    options) make the timing variants of ``scripts/torch_knn_sweep.py``."""
     global build_seconds, build_log
-    out = BUILD_DIR / f"libmola_kernels_{_digest()}.so"
+    flags = (*NVCC_FLAGS, *defines)
+    out = BUILD_DIR / f"libmola_kernels_{_digest(flags)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    tmpdir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        nvcc = _nvcc()
+        t0 = time.perf_counter()
+        objs = [tmpdir / f"{p.stem}.o" for p in cu]
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(o), str(p)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(cu, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(f"== {p.name}\n{log}" for p, log in zip(cu, logs))
+        failed = [p.name for p, proc in zip(cu, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = tmpdir / "lib.so"
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return out
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    # src, src_mask, tgt, tgt_mask, n, m, [k,] rows, cluster, tiles,
+    # part_len, chunk, smem, out_dist, out_idx, stream
+    lib.mola_knn_launch.argtypes = [vp] * 4 + [i32] * 9 + [vp] * 3
+    lib.mola_knn_launch.restype = i32
+    lib.mola_nn_launch.argtypes = [vp] * 4 + [i32] * 8 + [vp] * 3
+    lib.mola_nn_launch.restype = i32
+    lib.mola_knn_max_active_clusters.argtypes = [i32] * 4
+    lib.mola_knn_max_active_clusters.restype = i32
+    lib.mola_cuda_error_string.argtypes = [i32]
+    lib.mola_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it on first call."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.mola_knn_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
-                                            vp, vp, vp, vp, vp]
-            lib.mola_knn_launch.restype = i32
-            lib.mola_nn_launch.argtypes = [vp, vp, vp, vp, i32, i32, i32,
-                                           vp, vp, vp, vp, vp]
-            lib.mola_nn_launch.restype = i32
-            lib.mola_cuda_error_string.argtypes = [i32]
-            lib.mola_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 

@@ -7,9 +7,16 @@
 ``ops.matching.knn`` for CPU tensors; any other device raises. On the main
 path it serves the candidate-cache refreshes (k = 4 for decimated -> planes
 and k = 8 for edges -> edges) and the point-to-line matcher (k = 5).
+
+:func:`plan_launch` is the host-side launch plan shared with K2
+(``ops/nn_kernel.py``): a pure function of the shape and the SM count, so
+the CPU tests check it without a card.
 """
 
 from __future__ import annotations
+
+from collections import Counter
+from typing import NamedTuple
 
 import torch
 
@@ -17,10 +24,113 @@ from . import cuda_build
 from .matching import NNResult, knn as knn_plain
 
 SUPPORTED_K = (1, 4, 5, 8, 16)
+#: sources per thread compiled for every k (``csrc/knn.cu`` instantiates
+#: exactly these; ``-Xptxas -v`` shows no spills at any of them)
+ROWS = (1, 2)
+THREADS = 128      # threads per block (csrc: kThreads)
+WARPS = THREADS // 32  # target parts a block: one a warp (csrc: kWarps)
+STEP_ALIGN = 8     # part and chunk lengths are multiples of it (csrc: kStepAlign)
+CLUSTERS = (1, 2, 4, 8)  # blocks per cluster: the portable sizes
+STAGE_TARGETS = 6144     # targets a block stages at once (96 KB at 16 B each)
+MIN_PART = 1024    # targets below which a part costs more than more blocks gain
+MAX_TILES = 65535  # grid.y limit
 
 #: launches of the CUDA kernel through :func:`knn` (plain-twin calls on the
-#: CPU do not count)
+#: CPU do not count), in all and per ``(n, m, k)``
 launches = 0
+launches_by_shape: Counter = Counter()
+
+
+class LaunchPlan(NamedTuple):
+    """One launch of ``csrc/knn_common.cuh::knn_search``: a grid of
+    ``(cluster, tiles)`` blocks of ``THREADS`` threads. Each block holds a
+    tile of ``32 * rows`` sources; its ``WARPS`` warps and the ``cluster``
+    blocks of its cluster split the targets into ``parts`` contiguous parts
+    of ``part_len`` targets, in ascending order (cluster rank major, warp
+    minor)."""
+    rows: int      # sources per thread (R)
+    cluster: int   # blocks per cluster (C)
+    tiles: int     # source tiles (grid.y)
+    part_len: int  # targets per part, a multiple of STEP_ALIGN
+    chunk: int     # targets per part staged at once, a multiple of STEP_ALIGN
+    smem: int      # dynamic shared memory of a block, bytes
+
+    @property
+    def parts(self) -> int:
+        return self.cluster * WARPS
+
+    @property
+    def tile(self) -> int:
+        return 32 * self.rows
+
+    @property
+    def blocks(self) -> int:
+        return self.cluster * self.tiles
+
+
+def _round_up(x: int, q: int) -> int:
+    return -(-x // q) * q
+
+
+def make_plan(n: int, m: int, k: int, rows: int, cluster: int,
+              stage_targets: int = STAGE_TARGETS) -> LaunchPlan:
+    """The plan with these choices: ``m`` cut into ``cluster * WARPS``
+    equal parts (rounded up to STEP_ALIGN), each staged ``stage_targets //
+    WARPS`` targets at a time."""
+    part_len = _round_up(-(-m // (cluster * WARPS)), STEP_ALIGN)
+    chunk = min(part_len, max(STEP_ALIGN, (stage_targets // WARPS) // STEP_ALIGN * STEP_ALIGN))
+    tiles = -(-n // (32 * rows))
+    # staged targets (x, y, z and mask: 16 B), and aliased over them after
+    # the scan the per-part sorted lists (d2 f32 + index i32) of the warps
+    smem = max(WARPS * chunk * 16, THREADS * rows * k * 8)
+    return LaunchPlan(rows, cluster, tiles, part_len, chunk, smem)
+
+
+def step_len(k: int) -> int:
+    """Targets a scan step covers (csrc: ``step_len<K>``)."""
+    return 8 if k <= 5 else 4
+
+
+def plan_launch(n: int, m: int, k: int, sm_count: int) -> LaunchPlan:
+    """The launch plan for ``n`` sources, ``m`` targets and list length
+    ``k`` on a card with ``sm_count`` SMs, by a rule that picks the fastest
+    plan of ``scripts/torch_knn_sweep.py`` at every main-path shape:
+
+    * R = 2 sources a thread (one shared load feeds two pairs) when tiles of
+      64 sources still give half an SM count of blocks, else 1;
+    * the smallest cluster that gives at least half an SM count of blocks
+      (two warps a sub-partition), doubled while the blocks still fit two
+      to an SM and the parts keep ``MIN_PART`` targets."""
+    if k not in SUPPORTED_K:
+        raise ValueError(f"knn kernel supports k in {SUPPORTED_K}, got {k}")
+    if n < 1 or m < 1:
+        raise ValueError(f"plan_launch needs n, m >= 1, got {n}, {m}")
+    rows = 2 if 2 * -(-n // 64) >= sm_count else 1
+    tiles = -(-n // (32 * rows))
+    if tiles > MAX_TILES:
+        raise ValueError(f"plan_launch: {n} sources exceed {MAX_TILES} tiles")
+    cluster = next((c for c in CLUSTERS if 2 * c * tiles >= sm_count), CLUSTERS[-1])
+    while (cluster < CLUSTERS[-1] and 2 * cluster * tiles <= 2 * sm_count
+           and m // (2 * cluster * WARPS) >= MIN_PART):
+        cluster *= 2
+    return make_plan(n, m, k, rows, cluster)
+
+
+_sm_counts: dict = {}
+_plans: dict = {}
+
+
+def cached_plan(device: torch.device, n: int, m: int, k: int) -> LaunchPlan:
+    """:func:`plan_launch` for a CUDA device, memoised per device and
+    shape (the SM count is read once per device)."""
+    dev = device.index
+    key = (dev, n, m, k)
+    plan = _plans.get(key)
+    if plan is None:
+        if dev not in _sm_counts:
+            _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = _plans[key] = plan_launch(n, m, k, _sm_counts[dev])
+    return plan
 
 
 def check_inputs(src, src_mask, tgt, tgt_mask) -> None:
@@ -40,13 +150,27 @@ def check_inputs(src, src_mask, tgt, tgt_mask) -> None:
         raise ValueError("empty target cloud")
 
 
-def splits_for(device: torch.device, n: int, m: int) -> int:
-    """Target-axis splits: enough blocks for two waves on the card's SMs,
-    at least 1024 targets per split, at most 64 splits."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks_n = max(1, -(-n // 128))
-    want = -(-2 * sms // blocks_n)
-    return int(max(1, min(64, want, -(-m // 1024))))
+def launch(src, src_mask, tgt, tgt_mask, k: int, plan: LaunchPlan, dist, idx,
+           lib=None) -> None:
+    """One launch of the search with an explicit plan into ``dist``/``idx``
+    (``[n, k]``, or ``[n]`` for k = 1), through K2's entry point for k = 1
+    and K1's otherwise, on the current stream of the tensors' device. The
+    wrappers call it; tuning runs may call it with another plan or another
+    build of the library (``lib``)."""
+    lib = lib or cuda_build.library()
+    dev = src.device.index
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return launch(src, src_mask, tgt, tgt_mask, k, plan, dist, idx, lib)
+    args = (src.data_ptr(), src_mask.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
+            src.shape[0], tgt.shape[0])
+    shape = (plan.rows, plan.cluster, plan.tiles, plan.part_len,
+             plan.chunk, plan.smem, dist.data_ptr(), idx.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if dist.dim() == 1:
+        cuda_build.check(lib.mola_nn_launch(*args, *shape), "nearest_neighbors")
+    else:
+        cuda_build.check(lib.mola_knn_launch(*args, k, *shape), "knn")
 
 
 def knn(src, src_mask, tgt, tgt_mask, k: int) -> NNResult:
@@ -61,20 +185,11 @@ def knn(src, src_mask, tgt, tgt_mask, k: int) -> NNResult:
         raise ValueError(f"knn kernel supports k in {SUPPORTED_K}, got {k}")
     check_inputs(src, src_mask, tgt, tgt_mask)
     n, m = src.shape[0], tgt.shape[0]
-    dev = src.device
-    dist = torch.empty((n, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    dist = torch.empty((n, k), dtype=torch.float32, device=src.device)
+    idx = torch.empty((n, k), dtype=torch.int32, device=src.device)
     if n == 0:
         return NNResult(idx, dist)
-    splits = splits_for(dev, n, m)
-    part_d2 = torch.empty((splits, n, k), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((splits, n, k), dtype=torch.int32, device=dev)
-    lib = cuda_build.library()
-    with torch.cuda.device(dev):
-        code = lib.mola_knn_launch(
-            src.data_ptr(), src_mask.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
-            n, m, k, splits, part_d2.data_ptr(), part_idx.data_ptr(),
-            dist.data_ptr(), idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(code, "knn")
+    launch(src, src_mask, tgt, tgt_mask, k, cached_plan(src.device, n, m, k), dist, idx)
     launches += 1
+    launches_by_shape[(n, m, k)] += 1
     return NNResult(idx, dist)

@@ -3,24 +3,27 @@
 ``pallas_nearest_neighbors``).
 
 ``nearest_neighbors`` launches the CUDA kernel in ``csrc/nn.cu`` (the k = 1
-specialisation of ``csrc/knn_common.cuh``) for CUDA tensors and returns the
-plain twin ``ops.matching.nearest_neighbors`` for CPU tensors; any other
-device raises. On the main path it serves the paired-ratio quality (1024
-sources against the 32k map layer), the final covariance pairing and the
-scan-to-scan point-to-plane matcher.
+specialisation of ``csrc/knn_common.cuh``, planned by
+``knn_kernel.plan_launch``) for CUDA tensors and returns the plain twin
+``ops.matching.nearest_neighbors`` for CPU tensors; any other device raises.
+On the main path it serves the paired-ratio quality (1024 sources against
+the 32k map layer), the final covariance pairing and the scan-to-scan
+point-to-plane matcher.
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
-from . import cuda_build
-from .knn_kernel import check_inputs, splits_for
+from .knn_kernel import cached_plan, check_inputs, launch
 from .matching import NNResult, nearest_neighbors as nearest_neighbors_plain
 
 #: launches of the CUDA kernel through :func:`nearest_neighbors` (plain-twin
-#: calls on the CPU do not count)
+#: calls on the CPU do not count), in all and per ``(n, m, 1)``
 launches = 0
+launches_by_shape: Counter = Counter()
 
 
 def nearest_neighbors(src, src_mask, tgt, tgt_mask) -> NNResult:
@@ -33,20 +36,11 @@ def nearest_neighbors(src, src_mask, tgt, tgt_mask) -> NNResult:
         raise ValueError(f"nearest_neighbors: unsupported device {src.device}")
     check_inputs(src, src_mask, tgt, tgt_mask)
     n, m = src.shape[0], tgt.shape[0]
-    dev = src.device
-    dist = torch.empty((n,), dtype=torch.float32, device=dev)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    dist = torch.empty((n,), dtype=torch.float32, device=src.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=src.device)
     if n == 0:
         return NNResult(idx, dist)
-    splits = splits_for(dev, n, m)
-    part_d2 = torch.empty((splits, n), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((splits, n), dtype=torch.int32, device=dev)
-    lib = cuda_build.library()
-    with torch.cuda.device(dev):
-        code = lib.mola_nn_launch(
-            src.data_ptr(), src_mask.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
-            n, m, splits, part_d2.data_ptr(), part_idx.data_ptr(),
-            dist.data_ptr(), idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(code, "nearest_neighbors")
+    launch(src, src_mask, tgt, tgt_mask, 1, cached_plan(src.device, n, m, 1), dist, idx)
     launches += 1
+    launches_by_shape[(n, m, 1)] += 1
     return NNResult(idx, dist)

@@ -30,7 +30,8 @@ def scan():
 
 
 def _raw(scan, capacity=16384):
-    g = generators.GeneratorRawPoints(capacity=capacity, min_range=2.0, keep_time=True)
+    g = generators.GeneratorRawPoints(capacity=capacity, min_range=2.0, keep_time=True,
+                                     device="cpu")
     gj = jgen.GeneratorRawPoints(capacity=capacity, min_range=2.0, keep_time=True)
     return g(scan)["raw"], gj(scan)["raw"]
 
@@ -160,10 +161,11 @@ def test_edges_planes_layers_agree(scan):
 def test_metric_map_npz_and_numpy_layers_cross_packages(tmp_path, rng):
     xyz = rng.standard_normal((300, 3)).astype(np.float32)
     pcj = jmm.from_points(xyz, capacity=256, attrs={"time": rng.uniform(size=300)})
-    pc = metric_map.from_points(xyz, capacity=256, attrs={"time": rng.uniform(size=300)})
+    pc = metric_map.from_points(xyz, capacity=256, attrs={"time": rng.uniform(size=300)},
+                                device="cpu")
     np.testing.assert_array_equal(pc.xyz.numpy(), np.asarray(pcj.xyz))  # same subsample
     jmm.save_metric_map(str(tmp_path / "j.npz"), {"raw": pcj})
-    back = metric_map.load_metric_map(str(tmp_path / "j.npz"))
+    back = metric_map.load_metric_map(str(tmp_path / "j.npz"), device="cpu")
     np.testing.assert_array_equal(back["raw"].xyz.numpy(), np.asarray(pcj.xyz))
     np.testing.assert_array_equal(back["raw"].attrs["time"].numpy(), np.asarray(pcj.attrs["time"]))
     metric_map.save_metric_map(str(tmp_path / "t.npz"), back)
@@ -171,5 +173,5 @@ def test_metric_map_npz_and_numpy_layers_cross_packages(tmp_path, rng):
     np.testing.assert_array_equal(np.asarray(again["raw"].mask), np.asarray(pcj.mask))
     layers = metric_map.to_numpy_layers(metric_map.from_numpy_layers(
         {"raw": {"xyz": np.asarray(pcj.xyz), "mask": np.asarray(pcj.mask),
-                 "attrs": {"time": np.asarray(pcj.attrs["time"])}}}))
+                 "attrs": {"time": np.asarray(pcj.attrs["time"])}}}, device="cpu"))
     np.testing.assert_array_equal(layers["raw"]["xyz"], np.asarray(pcj.xyz))

@@ -39,7 +39,7 @@ def setup():
     """Filtered layers of scans 0 and 2 (numpy, from the reference filter
     chain) and both modules' stage parameters."""
     cfg = realtime_config(scale=AZIMUTH / 2048)
-    port = build_module(cfg)
+    port = build_module(cfg, device="cpu")
     ref = JLidarOdometry()
     ref.initialize(cfg)
     obs, gt = hdl64_sequence(n_scans=3, n_azimuth=AZIMUTH)
@@ -70,7 +70,7 @@ def test_align_pipeline_matches_reference(setup, for_map):
     stages = port._stages_for(AlignKind.LIDAR_ODOMETRY, for_map)
     jstages = ref._stages_for(JAlignKind.LIDAR_ODOMETRY, for_map)
     assert [dataclasses.asdict(s) for s in stages] == [dataclasses.asdict(s) for s in jstages]
-    res = icp.align_pipeline(from_numpy_layers(src), from_numpy_layers(tgt),
+    res = icp.align_pipeline(from_numpy_layers(src, "cpu"), from_numpy_layers(tgt, "cpu"),
                              se3.Pose(torch.from_numpy(gR), torch.from_numpy(gt_)), stages)
     jres = jicp.align_pipeline(_jmap(src), _jmap(tgt),
                                jse3.Pose(jnp.asarray(gR), jnp.asarray(gt_)), jstages)

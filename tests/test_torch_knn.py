@@ -12,6 +12,9 @@ Equal distances may be ordered differently by the reference, so indices
 are compared only where consecutive distances differ by more than 1e-3 m.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,3 +159,165 @@ def test_cuda_kernels_match_twins(rng, k):
     got1 = nn_kernel.nearest_neighbors(src, sm, tgt, tm)
     want1 = matching.nearest_neighbors(src, sm, tgt, tm)
     assert torch.equal(got1.idx, want1.idx) and torch.equal(got1.dist, want1.dist)
+
+
+# ---------------------------------------------------------------------------
+# The launch plan (pure Python) and the search it drives, emulated on the CPU
+
+MAIN_SHAPES = [(8192, 32768, 4), (2048, 8192, 8), (2048, 8192, 5), (2048, 2048, 5),
+               (1024, 32768, 1), (8192, 32768, 1), (8192, 8192, 1)]
+EDGE_SHAPES = [(1, 1, 1), (777, 37, 4), (300, 1, 16), (5, 26, 8), (100_000, 300, 5),
+               (3, 70_000, 4), (129, 2500, 1)]
+
+
+def _all_plans(n, m, k):
+    yield knn_kernel.plan_launch(n, m, k, 132)
+    for r in knn_kernel.ROWS:
+        for c in knn_kernel.CLUSTERS:
+            for stage in (knn_kernel.STAGE_TARGETS, 64):
+                yield knn_kernel.make_plan(n, m, k, r, c, stage)
+
+
+@pytest.mark.parametrize("n,m,k", MAIN_SHAPES + EDGE_SHAPES)
+def test_plan_covers_every_target_once_in_order(n, m, k):
+    for plan in _all_plans(n, m, k):
+        assert 1 <= plan.cluster <= 8  # portable cluster sizes only
+        assert plan.part_len % knn_kernel.STEP_ALIGN == 0
+        assert plan.chunk % knn_kernel.STEP_ALIGN == 0 and plan.chunk <= plan.part_len
+        assert plan.tiles * plan.tile >= n and (plan.tiles - 1) * plan.tile < n
+        assert plan.smem <= 232448
+        # parts in launch order (cluster rank major, warp minor), each
+        # streamed in chunks: every target index exactly once, ascending
+        seen = []
+        for rank in range(plan.cluster):
+            for w in range(knn_kernel.WARPS):
+                p0 = (rank * knn_kernel.WARPS + w) * plan.part_len
+                for off in range(0, plan.part_len, plan.chunk):
+                    hi = min(p0 + off + min(plan.chunk, plan.part_len - off), m)
+                    seen.extend(range(p0 + off, hi))
+        assert seen == list(range(m))
+
+
+@pytest.mark.parametrize("n,m,k", MAIN_SHAPES)
+def test_plan_fills_the_card_at_main_path_shapes(n, m, k):
+    plan = knn_kernel.plan_launch(n, m, k, 132)
+    assert plan.blocks * knn_kernel.THREADS // 32 >= 2 * 132
+    assert plan == knn_kernel.plan_launch(n, m, k, 132)  # a pure function
+
+
+def test_plan_rejects_unsupported_k():
+    with pytest.raises(ValueError):
+        knn_kernel.plan_launch(10, 10, 3, 132)
+
+
+def _sqd(s, t):
+    d = (s - t).astype(np.float32)
+    return np.float32(np.float32(d[0] * d[0] + d[1] * d[1]) + np.float32(d[2] * d[2]))
+
+
+def _insert(lst, v, i, lex):
+    """The kernel's shift insertion: before the first entry it beats."""
+    below = [v < d or (lex and v == d and i < j) for d, j in lst]
+    if below[-1]:
+        lst.insert(below.index(True), (v, i))
+        lst.pop()
+
+
+def _emulate(src, sm, tgt, tm, k, plan):
+    """``csrc/knn_common.cuh::knn_search`` in Python: per part and chunk,
+    the K best steps by step minimum, their exact rescan in (d2, index)
+    order, then the merge of the parts in launch order."""
+    big, step = np.float32(1e30), knn_kernel.step_len(k)
+    m = tgt.shape[0]
+    s_all = np.where(sm[:, None] > 0.5, src, 0).astype(np.float32)
+    t_all = np.where(tm[:, None] > 0.5, tgt, 3e4).astype(np.float32)
+    idx = np.zeros((src.shape[0], k), np.int32)
+    dist = np.zeros((src.shape[0], k), np.float32)
+    for i, s in enumerate(s_all):
+        d_all = np.array([_sqd(s, t) for t in t_all] + [np.inf] * step, np.float32)
+        merged = [(big, 0)] * k
+        for p in range(plan.parts):
+            lst = [(big, 0)] * k
+            for off in range(0, plan.part_len, plan.chunk):
+                base = p * plan.part_len + off
+                # the scan stops at the first step that is all padding
+                live = min(plan.chunk, plan.part_len - off, -(-max(0, m - base) // step) * step)
+                steps = [(big, 0)] * k
+                for j in range(0, live, step):
+                    _insert(steps, np.float32(min(d_all[base + j:base + j + step])), j // step, False)
+                for dmin, js in steps:
+                    if dmin < big:
+                        for u in range(step):
+                            g = base + js * step + u
+                            if d_all[g] <= steps[-1][0]:
+                                _insert(lst, d_all[g], g, True)
+            for v, g in lst:
+                _insert(merged, v, g, False)
+        for q, (v, g) in enumerate(merged):
+            g = min(g, m - 1)
+            if v > 1e8:
+                v, g = big, 0
+            dist[i, q] = np.sqrt(np.float32(v if sm[i] > 0.5 else big))
+            idx[i, q] = g
+    return idx, dist
+
+
+def _tie_clouds(rng, n, m, extent=2):
+    """Integer grid points in a small box: squared distances are exact and
+    equal distances straddle every part and cluster-rank boundary."""
+    src = rng.integers(-extent, extent + 1, (n, 3)).astype(np.float32)
+    tgt = rng.integers(-extent, extent + 1, (m, 3)).astype(np.float32)
+    sm = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    tm = (rng.uniform(size=m) < 0.9).astype(np.float32)
+    src[sm < 0.5] = 1e6
+    tgt[tm < 0.5] = 1e6
+    return src, sm, tgt, tm
+
+
+@pytest.mark.parametrize("k", knn_kernel.SUPPORTED_K)
+def test_emulated_search_is_the_twin_under_ties(rng, k):
+    src, sm, tgt, tm = _tie_clouds(rng, 24, 300)
+    want = matching.knn(*_t(src, sm, tgt, tm), k)
+    for plan in (knn_kernel.make_plan(24, 300, k, 1, 8),   # 32 parts, some empty
+                 knn_kernel.make_plan(24, 300, k, 1, 2, 64),  # streamed in chunks
+                 knn_kernel.plan_launch(24, 300, k, 132)):
+        idx, dist = _emulate(src, sm, tgt, tm, k, plan)
+        np.testing.assert_array_equal(idx, want.idx.numpy())
+        np.testing.assert_array_equal(dist, want.dist.numpy())
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    from mola_fe_lidar_tpu_torch.cloud import metric_map
+    from mola_fe_lidar_tpu_torch.filters import generators
+    from mola_fe_lidar_tpu_torch.frontend.odometry import LidarOdometry
+    from mola_fe_lidar_tpu_torch.obs import runner
+
+    for fn in (LidarOdometry.__init__, runner.build_module, runner.run_replay,
+               generators.GeneratorRawPoints.__init__, generators.generators_from_config,
+               metric_map.from_points, metric_map.from_numpy_layers,
+               metric_map.load_metric_map):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default) == torch.device("cuda"), fn
+    assert torch.device(runner.parser().parse_args([]).device) == torch.device("cuda")
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python3 chip_smoke.py, or pytest -m cuda on one)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", knn_kernel.SUPPORTED_K)
+def test_cuda_every_plan_matches_twin_at_edges(k):
+    """Every compiled R and cluster size, and the wrappers, bit for bit:
+    ties across part and cluster-rank boundaries with n not a multiple of
+    any tile, m below one part and m = 1, all targets masked, chunked
+    staging (the battery ``chip_smoke.py`` runs)."""
+    _cuda_or_skip()
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.check_plans(torch.device("cuda", 0), ks=(k,)) > 0

@@ -73,7 +73,7 @@ def test_replay_matches_reference():
         ref_future = pool.submit(jrunner.run_replay, obs, _reference_config(
             AZIMUTH / 2048, ("min_icp_goodness=0.25", "precompile_rare_paths=false")),
             gt_poses=gt)
-        res = runner.run_replay(obs, cfg, gt_poses=gt)
+        res = runner.run_replay(obs, cfg, gt_poses=gt, device="cpu")
         ref = ref_future.result()
     try:
         assert res["jobs_abandoned"] == 0 and ref["jobs_abandoned"] == 0
@@ -110,13 +110,30 @@ torch.set_num_threads(1)
 from mola_fe_lidar_tpu_torch.obs.hdl64 import hdl64_sequence
 from mola_fe_lidar_tpu_torch.obs.runner import realtime_config, run_replay
 obs, gt = hdl64_sequence(n_scans=2, n_azimuth=128)
-res = run_replay(obs, realtime_config(128 / 2048), gt_poses=gt)
+res = run_replay(obs, realtime_config(128 / 2048), gt_poses=gt, device="cpu")
 res["module"].shutdown()
 print(json.dumps({"n_keyframes": res["n_keyframes"], "jobs_abandoned": res["jobs_abandoned"],
                   "n_poses": len(res["scan_poses"]),
                   "loaded": sorted(m for m in sys.modules
                                    if m.split(".")[0] in ("jax", "jaxlib", "mola_fe_lidar_tpu"))}))
 """
+
+
+def test_backend_flush_waits_for_submitted_calls():
+    """``run_replay`` reads the recorded localizations after ``flush``: a
+    call still queued on the back-end's thread must be recorded by then."""
+    import threading
+
+    from mola_fe_lidar_tpu_torch.frontend.backend import InMemoryBackend
+
+    backend = InMemoryBackend()
+    gate = threading.Event()
+    backend._submit(gate.wait, None)  # holds the back-end's one worker
+    backend.advertise_updated_localization("loc")
+    threading.Timer(0.2, gate.set).start()
+    backend.flush()
+    assert backend.localizations == ["loc"]
+    backend.shutdown()
 
 
 def test_port_runs_with_jax_and_the_reference_blocked():
@@ -143,4 +160,4 @@ def test_port_runs_with_jax_and_the_reference_blocked():
 def test_unported_settings_raise(override):
     cfg = runner.build_config(overrides=runner.REALTIME + runner.SLICE + (override,))
     with pytest.raises(NotImplementedError):
-        runner.build_module(cfg).shutdown()
+        runner.build_module(cfg, device="cpu").shutdown()
