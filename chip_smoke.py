@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port (``mola_fe_lidar_tpu_torch``) once on one GPU.
 
-    python3 chip_smoke.py    # build kernels, check them, replay 30 scans
+    python3 chip_smoke.py    # build kernels, check them, replay 30 scans twice
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -21,13 +21,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and ``plain_ms`` (the twin);
 4. simulate full-resolution HDL-64 scans (131,072 rays each) and replay
    them through the port's ``run_replay`` with the KITTI preset at the
-   realtime operating point on ``cuda``, with every kernel's launch count
-   (in all and per shape) reset just before and read just after; check the
-   trajectory.
+   realtime operating point on ``cuda`` -- the scan step and the preset's
+   nearby-keyframe window -- with every kernel's launch count (in all and
+   per shape) reset just before and read just after; check the trajectory
+   and that nearby batches ran;
+5. replay the same scans with loop-closure candidates from 3 keyframes
+   back (``min_topo_dist_to_consider_loopclosure=3``), so that full-width
+   Monte-Carlo batches (10 lanes against a +-3-keyframe submap) run, with
+   the counts reset and read around it; check that loop-closure checks ran;
+6. hold every batched shape those replays launched (``launches_by_shape``
+   keys with B > 1) bit for bit against the twin and against B unbatched
+   launches, once with every operand per lane and once with the target and
+   the source mask shared by all lanes (stride-0 expands), and time it as
+   in phase 3 (the bound counts B * n * m pairs).
 
 The second-to-last line is ``{"kernels": [...]}`` (one row per kernel at
-its largest main-path shape, with every shape under ``shapes``) and the
-last line is
+its largest main-path shape, with every shape, batched ones included,
+under ``shapes``) and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -41,12 +51,13 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-ATE_BOUND_M = 0.5  # scan-rate ATE bound for the replay (metres)
+ATE_BOUND_M = 0.5  # scan-rate ATE bound for the replays (metres)
 # the kernels' bound: 8 f32 operations a (source, target) pair (3 sub, 3 mul,
 # 2 add) at the H100 SXM's 67 TFLOP/s f32 peak (NVIDIA data sheet, 700 W)
 FLOP_PER_PAIR = 8
 F32_PEAK_FLOPS = 67e12
-N_SCANS = 30  # full-resolution HDL-64 scans in the replay
+N_SCANS = 30  # full-resolution HDL-64 scans in each replay
+LC_TOPO = 3  # keyframes back from which the loop-closure phase looks
 
 
 def fail(msg: str) -> int:
@@ -313,53 +324,70 @@ def check_kernels(device):
     return rows
 
 
-def replay(device):
-    """Phase 4: the port's main path. Returns the launch counts."""
+def _reset_counts():
+    from mola_fe_lidar_tpu_torch.ops import knn_kernel, nn_kernel
+    for mod in (knn_kernel, nn_kernel):
+        mod.launches = 0
+        mod.launches_by_shape.clear()
+
+
+def _read_counts():
+    from mola_fe_lidar_tpu_torch.ops import knn_kernel, nn_kernel
+    return ({"knn": knn_kernel.launches, "nearest_neighbors": nn_kernel.launches},
+            {"knn": dict(knn_kernel.launches_by_shape),
+             "nearest_neighbors": dict(nn_kernel.launches_by_shape)})
+
+
+def _span(stats, key):
+    """(count, mean ms, total s) of a profiler span, zeros if it never ran."""
+    s = stats.get(key)
+    return (s["count"], s["mean_s"] * 1e3, s["total_s"]) if s else (0, 0.0, 0.0)
+
+
+def run_phase(device, obs, gt, cfg, label):
+    """One replay of ``obs`` on ``device`` with the counts reset just before
+    and read just after. Returns (result, counts, counts per shape, stats)."""
     import numpy as np
     import torch
-    from mola_fe_lidar_tpu_torch.obs.hdl64 import hdl64_sequence
-    from mola_fe_lidar_tpu_torch.obs.runner import realtime_config, run_replay
-    from mola_fe_lidar_tpu_torch.ops import knn_kernel, nn_kernel
+    from mola_fe_lidar_tpu_torch.obs.runner import run_replay
 
-    t0 = time.perf_counter()
-    obs, gt = hdl64_sequence(n_scans=N_SCANS, n_azimuth=2048)
-    print(f"simulated {N_SCANS} HDL-64 scans ({len(obs[0]['xyz'])} rays each) "
-          f"in {time.perf_counter() - t0:.1f} s")
-    cfg = realtime_config()
     torch.cuda.reset_peak_memory_stats(device)
-    knn_kernel.launches = 0
-    nn_kernel.launches = 0
-    knn_kernel.launches_by_shape.clear()
-    nn_kernel.launches_by_shape.clear()
+    _reset_counts()
     res = run_replay(obs, cfg, gt_poses=gt, device=device)
-    counts = {"knn": knn_kernel.launches, "nearest_neighbors": nn_kernel.launches}
-    by_shape = {"knn": dict(knn_kernel.launches_by_shape),
-                "nearest_neighbors": dict(nn_kernel.launches_by_shape)}
+    counts, by_shape = _read_counts()
     peak_mib = torch.cuda.max_memory_allocated(device) / 2**20
     module = res["module"]
     try:
-        layers = module.state.last_points
-        for name, pc in layers.items():
-            if pc.xyz.device.type != "cuda":
+        for name, pc in module.state.last_points.items():
+            if pc.xyz.device.type != torch.device(device).type:
                 raise AssertionError(f"layer {name} is on {pc.xyz.device}")
         ate = res.get("ate_rmse_scan")
         sps = res.get("scans_per_sec_steady")
-        print(f"replay: {res['n_scans']} scans, {res['n_keyframes']} keyframes, "
-              f"{res['n_factors']} factors, jobs_abandoned={res['jobs_abandoned']}, "
+        print(f"{label}: {res['n_scans']} scans, {res['n_keyframes']} keyframes, "
+              f"{res['n_factors']} factors ({res['n_nearby_edges']} nearby edges, "
+              f"{res['n_loop_closures']} loop closures), jobs_abandoned={res['jobs_abandoned']}, "
               f"wall {res['wall_s']:.2f} s, peak device memory {peak_mib:.1f} MiB")
-        print(f"scan ATE {ate} m (bound {ATE_BOUND_M} m), steady {sps} scans/s"
+        print(f"  scan ATE {ate} m (bound {ATE_BOUND_M} m), steady {sps} scans/s"
               + (f" = {1e3 / sps:.1f} ms/scan" if sps else ""))
         stats = module.profiler.stats()
-        for key in ("doProcess.fused_step", "doProcess.generators",
-                    "doProcess.local_map_build"):
-            if key in stats:
-                s = stats[key]
-                print(f"  {key}: n={s['count']} mean {s['mean_s'] * 1e3:.2f} ms "
-                      f"max {s['max_s'] * 1e3:.2f} ms")
-        print(f"launch counts during the replay: {counts}")
+        _, _, scan_total = _span(stats, "doProcessNewObservation")
+        for key in ("doProcessNewObservation", "doProcess.fused_step", "doProcess.generators",
+                    "doProcess.local_map_build", "checkNonAdjacent.nearby_batch_align",
+                    "checkNonAdjacent.lc_batch_align"):
+            n, mean_ms, total = _span(stats, key)
+            if n:
+                print(f"  {key}: n={n} mean {mean_ms:.2f} ms total {total:.3f} s"
+                      f" ({100 * total / max(scan_total, 1e-9):.1f} % of the scans' time)")
+        for kind in ("nearby", "lc"):
+            acc = stats.get(f"counter:checkNonAdjacent.{kind}.accepted")
+            good = stats.get(f"counter:checkNonAdjacent.{kind}.goodness")
+            if acc:
+                print(f"  {kind} checks: {acc['count']}, accepted {acc['total']:.0f}, goodness "
+                      f"mean {good['mean']:.4f} min {good['min']:.4f} max {good['max']:.4f}")
+        print(f"  launch counts: {counts}")
         for name, shapes in by_shape.items():
-            for (n, m, k), c in sorted(shapes.items()):
-                print(f"  {name} {n}x{m} k={k}: {c} launches, {c / N_SCANS:.3f} per scan")
+            for (b, n, m, k), c in sorted(shapes.items()):
+                print(f"    {name} B={b} {n}x{m} k={k}: {c} launches, {c / N_SCANS:.3f} per scan")
         if res["jobs_abandoned"] != 0:
             raise AssertionError("jobs abandoned")
         if res["n_keyframes"] < 3:
@@ -368,10 +396,103 @@ def replay(device):
             raise AssertionError(f"scan ATE {ate} outside the bound {ATE_BOUND_M} m")
         for name, c in counts.items():
             if c <= 0:
-                raise AssertionError(f"kernel {name} was not launched by the replay")
+                raise AssertionError(f"kernel {name} was not launched by the {label}")
     finally:
         module.shutdown()
+    return res, counts, by_shape, stats
+
+
+def replay(device, obs, gt):
+    """Phase 4: the port's main path with the preset's nearby window."""
+    from mola_fe_lidar_tpu_torch.obs.runner import realtime_config
+
+    res, counts, by_shape, stats = run_phase(device, obs, gt, realtime_config(), "replay")
+    if stats.get("counter:checkNonAdjacent.nearby.accepted", {}).get("count", 0) < 1:
+        raise AssertionError("no nearby check ran in the replay")
+    if not any(b > 1 for shapes in by_shape.values() for b, *_ in shapes):
+        raise AssertionError("no batched launch in the replay")
     return counts, by_shape
+
+
+def loop_closure(device, obs, gt):
+    """Phase 5: the same scans with loop-closure candidates from LC_TOPO
+    keyframes back: full-width Monte-Carlo batches against the submap."""
+    from mola_fe_lidar_tpu_torch.obs.runner import realtime_config
+
+    cfg = realtime_config()
+    cfg["params"]["min_topo_dist_to_consider_loopclosure"] = LC_TOPO
+    res, counts, by_shape, stats = run_phase(device, obs, gt, cfg, "loop-closure replay")
+    if stats.get("counter:checkNonAdjacent.lc.accepted", {}).get("count", 0) < 1:
+        raise AssertionError("no loop-closure check ran")
+    lanes = cfg["params"]["loop_closure_montecarlo_samples"]
+    if not any(b == lanes for b, *_ in by_shape["nearest_neighbors"]):
+        raise AssertionError(f"no {lanes}-lane Monte-Carlo batch was launched")
+    return counts, by_shape
+
+
+def check_batched(device, shape_counts):
+    """Phase 6: every batched shape the replays launched. ``shape_counts``:
+    {(kernel name, (B, n, m, k)): launches}. Returns the rows per kernel."""
+    import torch
+    from mola_fe_lidar_tpu_torch.ops import knn_kernel, matching, nn_kernel
+
+    gen = torch.Generator().manual_seed(2)
+    rows = {"knn": [], "nearest_neighbors": []}
+    for (name, (b, n, m, k)), launched in sorted(shape_counts.items()):
+        if b == 1:
+            continue
+        lanes = [make_cloud(gen, n, 0.95, device) for _ in range(b)]
+        src = torch.stack([x for x, _ in lanes])
+        sm = torch.stack([x for _, x in lanes])
+        lanes = [make_cloud(gen, m, 0.9, device) for _ in range(b)]
+        tgt = torch.stack([x for x, _ in lanes])
+        tm = torch.stack([x for _, x in lanes])
+        if name == "knn":
+            kern = lambda *a: knn_kernel.knn(*a, k)
+            plain = lambda *a: matching.knn(*a, k)
+        else:
+            kern, plain = nn_kernel.nearest_neighbors, matching.nearest_neighbors
+        shared = (src, sm[:1].expand_as(sm), tgt[:1].expand_as(tgt), tm[:1].expand_as(tm))
+        err = 0.0
+        for args in ((src, sm, tgt, tm), shared):
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            e, same = compare(got, want)
+            err = max(err, e)
+            if not same:
+                raise AssertionError(f"{name} B={b} {n}x{m} k={k} is not bit-identical to its twin")
+            for lane in range(b):
+                one = kern(*(x[lane].contiguous() for x in args))
+                if not (torch.equal(one.idx, got.idx[lane]) and torch.equal(one.dist, got.dist[lane])):
+                    raise AssertionError(f"{name} B={b} {n}x{m} k={k}: lane {lane} differs from "
+                                         "an unbatched launch")
+        s_ = torch.where(shared[1][..., None] > 0.5, shared[0], torch.zeros((), device=device))
+        t_ = torch.where(shared[3][..., None] > 0.5, shared[2],
+                         torch.full((), matching.PARK, device=device))
+        if name == "knn":
+            library = lambda: torch.topk(torch.cdist(
+                s_, t_, compute_mode="donot_use_mm_for_euclid_dist"), k, dim=-1, largest=False)
+        else:
+            library = lambda: torch.cdist(
+                s_, t_, compute_mode="donot_use_mm_for_euclid_dist").min(dim=-1)
+        call = lambda: kern(*shared)
+        row = {"kind": "knn" if name == "knn" else "nn", "B": b, "n": n, "m": m, "k": k,
+               "use": "batched (nearby / loop closure)", "max_abs_err": err,
+               "ms": cuda_ms(call, reps=20), "graph_ms": graph_ms(call),
+               "host_us": host_us(call),
+               "bound_ms": b * n * m * FLOP_PER_PAIR / F32_PEAK_FLOPS * 1e3,
+               "library_ms": cuda_ms(library, reps=5, warmup=1),
+               "plain_ms": cuda_ms(lambda: plain(*shared), reps=3, warmup=1),
+               "launches_per_scan": launched / N_SCANS}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(f"{name} B={b} k={k} {n}x{m}: bit-identical per lane (own and shared operands, "
+              f"twin and {b} unbatched launches); kernel {row['ms']:.4f} ms, graph "
+              f"{row['graph_ms']:.4f} ms, host {row['host_us']:.1f} us, bound "
+              f"{row['bound_ms']:.4f} ms ({100 * row['bound_share']:.1f} %), library "
+              f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"{row['launches_per_scan']:.3f} launches per scan")
+        rows[name].append(row)
+    return rows
 
 
 def main() -> int:
@@ -402,12 +523,26 @@ def main() -> int:
         return fail(f"ptxas reports spills in {spills}")
 
     rows = check_kernels(device)
-    counts, by_shape = replay(device)
+    from mola_fe_lidar_tpu_torch.obs.hdl64 import hdl64_sequence
+    t0 = time.perf_counter()
+    obs, gt = hdl64_sequence(n_scans=N_SCANS, n_azimuth=2048)
+    print(f"simulated {N_SCANS} HDL-64 scans ({len(obs[0]['xyz'])} rays each) "
+          f"in {time.perf_counter() - t0:.1f} s")
+    counts, by_shape = replay(device, obs, gt)
+    lc_counts, lc_by_shape = loop_closure(device, obs, gt)
+    batched = {}
+    for shapes in (by_shape, lc_by_shape):
+        for name, per_shape in shapes.items():
+            for key, c in per_shape.items():
+                batched[(name, key)] = max(batched.get((name, key), 0), c)
+    batched_rows = check_batched(device, batched)
     for row in rows:
         row["launches"] = counts[row["name"]]
+        row["launches_lc_phase"] = lc_counts[row["name"]]
         for shape in row["shapes"]:
-            c = by_shape[row["name"]].get((shape["n"], shape["m"], shape["k"]), 0)
+            c = by_shape[row["name"]].get((1, shape["n"], shape["m"], shape["k"]), 0)
             shape["launches_per_scan"] = c / N_SCANS
+        row["shapes"] += batched_rows[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,14 @@ extern "C" {
 // Returns 0 on success, a cudaError_t value if the launch failed, or -1 for
 // an unsupported k / R or a plan that does not cover the shape (the wrapper
 // checks k and builds the plan with plan_launch).
+// A batch of `batch` lanes: each operand's lane stride is in floats, 0 when
+// all lanes share it; the outputs are [batch, n, k].
 int mola_knn_launch(const float* src, const float* src_mask, const float* tgt,
-                    const float* tgt_mask, int n, int m, int k, int rows,
-                    int cluster, int tiles, int part_len, int chunk, int smem,
-                    float* out_dist, int* out_idx, void* stream) {
+                    const float* tgt_mask, int n, int m, int k, int batch,
+                    long long src_ls, long long src_mask_ls, long long tgt_ls,
+                    long long tgt_mask_ls, int rows, int cluster, int tiles,
+                    int part_len, int chunk, int smem, float* out_dist,
+                    int* out_idx, void* stream) {
   MOLA_KNN_CASES(MOLA_LAUNCH_CASE)
   return -1;
 }

@@ -60,9 +60,13 @@
 //     twice the chunks, each with its exact rescan; PERF.md).
 //   * The target axis is split into contiguous parts, one to each of the
 //     kWarps warps of a block and across the blocks of a cluster
-//     (grid.x = cluster size, grid.y = source tiles; grid.z is free for a
-//     batch axis). Each warp's lists hold its part's K nearest, sorted by
-//     (d2, index).
+//     (grid.x = cluster size, grid.y = source tiles). Each warp's lists hold
+//     its part's K nearest, sorted by (d2, index).
+//   * A batch of independent searches is one launch: lane b of B runs on
+//     grid.z = b with the plan of one lane. Each of the four operands
+//     carries its own lane stride in floats, and a stride of 0 shares one
+//     cloud (or mask) among all lanes, so a batch of poses against one
+//     target never copies the target. Outputs are [B, n, K], contiguous.
 //   * One launch: each warp leaves its lists in its block's shared memory;
 //     after cluster.sync() every block merges a slice of the tile's sources,
 //     reading all parts through distributed shared memory in ascending part
@@ -162,9 +166,18 @@ template <int K, int R>
 __global__ void __launch_bounds__(kThreads)
 knn_search(const float* __restrict__ src, const float* __restrict__ src_mask,
            const float* __restrict__ tgt, const float* __restrict__ tgt_mask,
-           int n, int m, int part_len, int chunk,
+           int n, int m, int part_len, int chunk, long long src_ls,
+           long long src_mask_ls, long long tgt_ls, long long tgt_mask_ls,
            float* __restrict__ out_dist, int* __restrict__ out_idx) {
   extern __shared__ float4 smem[];
+  // this block's lane of the batch
+  const long long lane = blockIdx.z;
+  src += lane * src_ls;
+  src_mask += lane * src_mask_ls;
+  tgt += lane * tgt_ls;
+  tgt_mask += lane * tgt_mask_ls;
+  out_dist += lane * n * K;
+  out_idx += lane * n * K;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int csize = static_cast<int>(cluster.num_blocks());
@@ -386,9 +399,10 @@ cudaError_t configure() {
   return e;
 }
 
-bool plan_ok(int n, int m, int k, int rows, int cluster, int tiles,
+bool plan_ok(int n, int m, int k, int batch, int rows, int cluster, int tiles,
              int part_len, int chunk, int smem) {
-  return cluster >= 1 && cluster <= kMaxCluster && tiles >= 1 &&
+  return batch >= 1 && batch <= 65535 && cluster >= 1 &&
+         cluster <= kMaxCluster && tiles >= 1 &&
          tiles <= 65535 && part_len >= kStepAlign &&
          part_len % kStepAlign == 0 && chunk >= kStepAlign &&
          chunk % kStepAlign == 0 && chunk <= part_len &&
@@ -399,15 +413,17 @@ bool plan_ok(int n, int m, int k, int rows, int cluster, int tiles,
 
 template <int K, int R>
 int launch_knn(const float* src, const float* src_mask, const float* tgt,
-               const float* tgt_mask, int n, int m, int cluster, int tiles,
-               int part_len, int chunk, int smem, float* out_dist,
-               int* out_idx, cudaStream_t stream) {
-  if (!plan_ok(n, m, K, R, cluster, tiles, part_len, chunk, smem))
+               const float* tgt_mask, int n, int m, int batch,
+               long long src_ls, long long src_mask_ls, long long tgt_ls,
+               long long tgt_mask_ls, int cluster, int tiles, int part_len,
+               int chunk, int smem, float* out_dist, int* out_idx,
+               cudaStream_t stream) {
+  if (!plan_ok(n, m, K, batch, R, cluster, tiles, part_len, chunk, smem))
     return -1;
   cudaError_t e = configure<K, R>();
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, tiles, 1);
+  cfg.gridDim = dim3(cluster, tiles, batch);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -419,7 +435,8 @@ int launch_knn(const float* src, const float* src_mask, const float* tgt,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, knn_search<K, R>, src, src_mask, tgt, tgt_mask,
-                         n, m, part_len, chunk, out_dist, out_idx);
+                         n, m, part_len, chunk, src_ls, src_mask_ls, tgt_ls,
+                         tgt_mask_ls, out_dist, out_idx);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -453,9 +470,9 @@ int max_active_clusters(int cluster, int smem) {
 // MOLA_KNN_CASES(MOLA_LAUNCH_CASE) or MOLA_KNN_CASES(MOLA_OCC_CASE).
 #define MOLA_LAUNCH_CASE(KK, RR)                                             \
   if (k == KK && rows == RR)                                                 \
-    return mola::launch_knn<KK, RR>(src, src_mask, tgt, tgt_mask, n, m,     \
-                                    cluster, tiles, part_len, chunk, smem,   \
-                                    out_dist, out_idx,                       \
-                                    static_cast<cudaStream_t>(stream));
+    return mola::launch_knn<KK, RR>(                                         \
+        src, src_mask, tgt, tgt_mask, n, m, batch, src_ls, src_mask_ls,      \
+        tgt_ls, tgt_mask_ls, cluster, tiles, part_len, chunk, smem,          \
+        out_dist, out_idx, static_cast<cudaStream_t>(stream));
 #define MOLA_OCC_CASE(KK, RR) \
   if (k == KK && rows == RR) return mola::max_active_clusters<KK, RR>(cluster, smem);

@@ -6,10 +6,13 @@
 
 #define MOLA_NN_CASES(X) X(1, 1) X(1, 2)
 
+// Batched as mola_knn_launch (knn.cu): lane strides in floats, 0 = shared.
 extern "C" int mola_nn_launch(const float* src, const float* src_mask,
                               const float* tgt, const float* tgt_mask, int n,
-                              int m, int rows, int cluster, int tiles,
-                              int part_len, int chunk, int smem,
+                              int m, int batch, long long src_ls,
+                              long long src_mask_ls, long long tgt_ls,
+                              long long tgt_mask_ls, int rows, int cluster,
+                              int tiles, int part_len, int chunk, int smem,
                               float* out_dist, int* out_idx, void* stream) {
   const int k = 1;
   MOLA_NN_CASES(MOLA_LAUNCH_CASE)

@@ -7,28 +7,47 @@ to-fine ICP against the rolling local map or the previous scan) -> ONE
 readback of the packed result -> resilience gates (weak map align falls
 back to scan-to-scan; unphysical steps hold the motion model) -> twist and
 odometry bookkeeping -> keyframe decision -> factor emission and the local-
-map rebuild -> the localization advert.
+map rebuild -> the localization advert -> the search for extra edges.
+
+The search (``check_for_nearby_kfs``) walks the local pose graph from the
+newest keyframe. Keyframes in the distance window become nearby-align
+checks, all of one scan aligned as ONE batch (``_check_nearby_batch``);
+the nearest keyframe at a large graph distance becomes a loop-closure
+check, an align of Monte-Carlo-perturbed guesses as one batch against a
+submap around the candidate (``_check_non_adjacent``). Both run on a
+two-worker pool beside the scan thread; accepted results become factors
+and graph edges.
 
 Ported: the fused (non-pipelined) scan step, scan-to-map and scan-to-scan
-odometry, the hash-built ``DeviceLocalMap``. Settings that select anything
-else raise ``NotImplementedError`` from :meth:`LidarOdometry.initialize`,
-naming the ROADMAP item that ports it -- in particular a non-empty
-nearby-keyframe / loop-closure window, the pipelined scan step and in-loop
-deskew.
+odometry, the hash-built ``DeviceLocalMap``, the nearby-keyframe and loop-
+closure search with the keyframe ``WorldModel``. Settings that select
+anything else raise ``NotImplementedError`` from
+:meth:`LidarOdometry.initialize`, naming the ROADMAP item that ports it --
+in particular the pipelined scan step and in-loop deskew.
+
+Threads and streams: the pool's jobs launch their kernels on the same CUDA
+stream as the scan step (each thread's current stream is the device's
+default stream), so device work of the search and of the scan is ordered,
+never concurrent. That is correct without events or ``record_stream``: a
+keyframe cloud the scan thread made is complete before any later launch
+reads it, and no allocation is reused under a running batch. A side stream
+for the pool measured no faster: both threads are host-bound (PERF.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
-from ..cloud.metric_map import MetricMap
+from ..cloud.metric_map import MetricMap, PointCloud
 from ..filters.base import FilterPipeline
 from ..filters.generators import apply_generators, generators_from_config
 from ..filters.pipeline import FilterDeskew
@@ -36,6 +55,7 @@ from ..geometry import se3, se3_np
 from ..models.config import AlignKind
 from ..models.icp import (_CAND_KINDS, _CAND_KNN_KINDS, ICPResult, align_pipeline,
                           check_params)
+from ..parallel.batch import monte_carlo_guesses
 from ..utils.config import DEG2RAD, yaml_get
 from .backend import (AdvertiseLocalization, FactorRelativePose3, HostPose,
                       ProposeKFInput)
@@ -43,6 +63,8 @@ from .icp_config import icp_stages_from_config
 from .local_map import DeviceLocalMap
 from .module_base import MODULE_REGISTRY, FrontEndBase, RawObservation
 from .pose_graph import PoseGraph, make_pose_graph
+from .worldmodel import (ANNOTATION_NAME_PC_LAYERS, ANNOTATION_NAME_RENDER_DECORATION,
+                         WorldModel)
 
 _PORTED_FILTERS = ("FilterDeskew", "FilterEdgesPlanes",
                    "mola::lidar_segmentation::FilterEdgesPlanes")
@@ -50,13 +72,71 @@ _PORTED_GENERATORS = ("GeneratorRawPoints", "mp2p_icp_filters::Generator")
 
 
 def _pack_icp_result(res: ICPResult) -> torch.Tensor:
-    """One f32 vector per scan, so the host reads the result back once."""
+    """One f32 vector per align (``[B, 51]`` for a batch), so the host
+    reads the result back once."""
+    lanes = res.pose.t.shape[:-1]
     return torch.cat([
-        res.pose.R.reshape(9), res.pose.t.reshape(3), res.cov.reshape(36),
+        res.pose.R.reshape(*lanes, 9), res.pose.t, res.cov.reshape(*lanes, 36),
         torch.stack([res.quality.to(torch.float32),
                      res.n_iterations.to(torch.float32),
-                     res.term_reason.to(torch.float32)]),
-    ])
+                     res.term_reason.to(torch.float32)], dim=-1),
+    ], dim=-1)
+
+
+def _packed_align(src_map: MetricMap, tgt_map: MetricMap, guess_R, guess_t,
+                  stages) -> torch.Tensor:
+    """``align_pipeline`` packed per lane: the guesses ``[3,3]``/``[3]`` give
+    one align, ``[B,3,3]``/``[B,3]`` a batch (layers ``[N,3]`` shared by
+    every lane, ``[B,N,3]`` per lane) -- one dispatch sequence and one
+    readback for every nearby candidate or Monte-Carlo guess of a check."""
+    return _pack_icp_result(align_pipeline(src_map, tgt_map, se3.Pose(guess_R, guess_t), stages))
+
+
+@functools.lru_cache(maxsize=None)
+def _decim_sel(n: int, keep: int) -> np.ndarray:
+    """Fixed hash-decorrelated subsample indices, sorted (a permutation
+    slice: layer buffers are voxel/azimuth-sorted, so a prefix would be a
+    spatial slab)."""
+    return np.sort(np.random.default_rng(0xD15CA7E).permutation(n)[:keep])
+
+
+def _decimate_layers(mm: MetricMap, k: int) -> MetricMap:
+    """1/k hash-stratified subsample of every layer; capacities stay
+    256-bucketed and layers at or below 256 points are kept whole."""
+    if k <= 1:
+        return mm
+    out = {}
+    for name, pc in mm.items():
+        n = pc.capacity
+        keep = max(256, (n // k) // 256 * 256)
+        if keep >= n:
+            out[name] = pc
+            continue
+        sel = torch.from_numpy(_decim_sel(n, keep)).to(pc.xyz.device)
+        out[name] = PointCloud(
+            pc.xyz[..., sel, :], pc.mask[..., sel],
+            {a: (v[..., sel] if v.dim() == pc.mask.dim() else v[..., sel, :])
+             for a, v in pc.attrs.items()})
+    return out
+
+
+def _stack_maps(clouds: List[MetricMap]) -> MetricMap:
+    """Lane-stack maps of one layer structure; ValueError when the layers,
+    attributes or capacities differ."""
+    first = clouds[0]
+    for mm in clouds[1:]:
+        if set(mm) != set(first):
+            raise ValueError("clouds with different layers")
+        for name, pc in mm.items():
+            ref = first[name]
+            if (pc.xyz.shape != ref.xyz.shape or set(pc.attrs) != set(ref.attrs)
+                    or any(v.shape != ref.attrs[a].shape for a, v in pc.attrs.items())):
+                raise ValueError(f"layer {name!r} differs between clouds")
+    return {name: PointCloud(torch.stack([mm[name].xyz for mm in clouds]),
+                             torch.stack([mm[name].mask for mm in clouds]),
+                             {a: torch.stack([mm[name].attrs[a] for mm in clouds])
+                              for a in pc.attrs})
+            for name, pc in first.items()}
 
 
 @dataclass
@@ -100,11 +180,24 @@ class LidarOdometryParameters:
     min_dist_xyz_between_keyframes: float = 1.0
     min_rotation_between_keyframes: float = 30.0 * DEG2RAD
     min_icp_goodness: float = 0.4
+    min_icp_goodness_lc: float = 0.6
+    min_icp_goodness_lc_auto: bool = False
+    lc_submap_keyframes: int = 0
+    lc_submap_capacity_mult: int = 2
     min_dist_to_matching: float = 6.0
     max_dist_to_matching: float = 12.0
     max_dist_to_loop_closure: float = 30.0
+    loop_closure_montecarlo_samples: int = 10
+    max_nearby_align_checks: int = 2
+    min_topo_dist_to_consider_loopclosure: int = 20
     max_KFs_local_graph: int = 50000
+    viz_decor_decimation: int = 5
+    viz_decor_pointsize: float = 2.0
     max_queue_length: int = 10
+    max_correction_ratio: float = 0.2
+    # accepted for the reference's configurations: the port compiles
+    # nothing ahead of time, so there is nothing to precompile
+    precompile_rare_paths: bool = True
     deskew_twist_smoothing: float = 0.5
     deskew_max_accel: float = 10.0
     deskew_max_rot_accel: float = 5.0
@@ -127,6 +220,10 @@ class LidarOdometryParameters:
     local_map_cand_motion_rot: float = 0.0
     local_map_gn_inner: int = 0
     local_map_build_mode: str = "sort"
+    nearby_max_iterations: int = 0
+    nearby_cand_knn: bool = False
+    nearby_decimate: int = 1
+    nearby_cand_k: int = 4
     max_sensor_speed: float = 30.0
     max_sensor_rot_rate: float = 2.0
 
@@ -163,7 +260,14 @@ class MethodState:
     last_kf: Optional[int] = None
     accum_since_last_kf_R: np.ndarray = field(default_factory=lambda: np.eye(3))
     accum_since_last_kf_t: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    kf_decor_counter: int = 0
     local_pose_graph: PoseGraph = field(default_factory=make_pose_graph)
+    checked_KF_pairs: Set[Tuple[int, int]] = field(default_factory=set)
+    mc_seed: int = 0
+    # append-only mirror of the graph's edges (a, b, R, t), and the
+    # accepted loop-closure pairs
+    edge_log: list = field(default_factory=list)
+    lc_pairs: list = field(default_factory=list)
 
 
 @MODULE_REGISTRY.register("LidarOdometry")
@@ -179,11 +283,16 @@ class LidarOdometry(FrontEndBase):
         self.icp_cases: Dict[AlignKind, tuple] = {}
         self.generators = []
         self.filter_pipeline = FilterPipeline()
+        self.worldmodel: Optional[WorldModel] = None
         self.state = MethodState()
-        self._state_lock = threading.Lock()
+        self._state_lock = threading.Lock()  # local graph, checked pairs, seeds
         self._pipeline_pool = ThreadPoolExecutor(1, thread_name_prefix="scan")
+        self._nearby_pool = ThreadPoolExecutor(2, thread_name_prefix="pastkf")
         self._pending = 0
+        self._nearby_inflight = 0
         self._pending_lock = threading.Lock()
+        # accepted nearby-align goodness: the evidence of the auto LC gate
+        self._nearby_goodness = deque(maxlen=64)
         self._last_positive_dt: Optional[float] = None
         self._local_map_builder: Optional[DeviceLocalMap] = None
         self._map_fail_streak = 0
@@ -195,7 +304,8 @@ class LidarOdometry(FrontEndBase):
         c = cfg.get("params", cfg)
         p = self.params
         for f in dataclasses.fields(p):
-            if f.name == "min_rotation_between_keyframes":
+            if f.name in ("min_rotation_between_keyframes", "min_icp_goodness_lc",
+                          "min_icp_goodness_lc_auto"):
                 continue
             v = yaml_get(c, f.name, default=getattr(p, f.name))
             if f.name == "local_map_capacity_mult":
@@ -208,20 +318,19 @@ class LidarOdometry(FrontEndBase):
         if "min_rotation_between_keyframes" in c:
             p.min_rotation_between_keyframes = yaml_get(
                 c, "min_rotation_between_keyframes", deg_to_rad=True)
+        lc_gate = yaml_get(c, "min_icp_goodness_lc", default=p.min_icp_goodness_lc)
+        if isinstance(lc_gate, str) and lc_gate.strip().lower() == "auto":
+            p.min_icp_goodness_lc_auto = True
+        else:
+            p.min_icp_goodness_lc = float(lc_gate)
+        p.min_icp_goodness_lc_auto = bool(yaml_get(c, "min_icp_goodness_lc_auto",
+                                                   default=p.min_icp_goodness_lc_auto))
         if p.odometry_reference not in ("last_scan", "local_map"):
             raise ValueError(f"odometry_reference must be last_scan|local_map, "
                              f"got {p.odometry_reference!r}")
         for key, default, ported, item in _UNPORTED:
             if not ported(yaml_get(c, key, default=default)):
                 raise NotImplementedError(f"{key}={c[key]!r} is not ported (ROADMAP {item})")
-        # nearby-keyframe and loop-closure checks consider keyframes at a
-        # graph distance d with min_dist_to_matching <= d <= max(max_dist_*);
-        # the port runs only configurations where that window is empty
-        if max(p.max_dist_to_matching, p.max_dist_to_loop_closure) >= p.min_dist_to_matching:
-            raise NotImplementedError(
-                "nearby-keyframe / loop-closure search is not ported (ROADMAP "
-                "Queue 1 item 11): set max_dist_to_matching and "
-                "max_dist_to_loop_closure below min_dist_to_matching")
         if p.odometry_reference == "local_map" and p.local_map_build_mode != "hash":
             raise NotImplementedError(
                 f"local_map_build_mode={p.local_map_build_mode!r} is not ported "
@@ -239,11 +348,13 @@ class LidarOdometry(FrontEndBase):
                 "configure icp_settings_with_vel")
         for kind in AlignKind:
             self.icp_cases.setdefault(kind, next(iter(self.icp_cases.values())))
-        # every stage the odometry can run (loop-closure stages never run)
-        for kind in (AlignKind.LIDAR_ODOMETRY, AlignKind.NEARBY_ALIGN):
+        # every stage the odometry and the search can run
+        for kind in AlignKind:
             for for_map in (False, True):
                 for stage in self._stages_for(kind, for_map):
                     check_params(stage)
+        for stage in self._nearby_stages():
+            check_params(stage)
 
         gen_cfg = c.get("pointcloud_generator")
         filt_cfg = list(c.get("pointcloud_filter") or [])
@@ -260,6 +371,8 @@ class LidarOdometry(FrontEndBase):
                                           "(ROADMAP Queue 1 item 12)")
         self.generators = generators_from_config(gen_cfg, device=self.device)
         self.filter_pipeline = FilterPipeline.from_config(filt_cfg)
+        if self.worldmodel is None:
+            self.worldmodel = self.find_service(WorldModel) or WorldModel(device=self.device)
 
     # ------------------------------------------------------------------
     def on_new_observation(self, obs: RawObservation):
@@ -394,7 +507,11 @@ class LidarOdometry(FrontEndBase):
             self.slam_backend.advertise_updated_localization(AdvertiseLocalization(
                 timestamp=tim, reference_kf=st.last_kf,
                 pose=_f32_pose(st.accum_since_last_kf_R, st.accum_since_last_kf_t)))
-        self._prune_local_graph()
+        # search for extra edges
+        with self._state_lock:
+            graph_nonempty = len(st.local_pose_graph) > 0
+        if graph_nonempty:
+            self.check_for_nearby_kfs()
 
     def _gate(self, icp_out: ICPOutput, use_map: bool, kind: AlignKind, dt: float,
               this_points: MetricMap, last_points: MetricMap):
@@ -545,16 +662,18 @@ class LidarOdometry(FrontEndBase):
     def _scan_step(self, kind, use_map, raw_map, target, guess_R, guess_t, twist):
         """Filter + align + pack: the per-scan device work, ending in one
         f32 vector (51 result values + the 2 sanity values)."""
-        mm, sanity = self._filter_core(
-            raw_map, torch.as_tensor(twist, dtype=torch.float32, device=self.device))
-        guess = se3.Pose(torch.as_tensor(guess_R, dtype=torch.float32, device=self.device),
-                         torch.as_tensor(guess_t, dtype=torch.float32, device=self.device))
-        res = align_pipeline(mm, target, guess, self._stages_for(kind, use_map))
-        return mm, torch.cat([_pack_icp_result(res), sanity])
+        mm, sanity = self._filter_core(raw_map, self._on_device(twist))
+        flat = _packed_align(mm, target, self._on_device(guess_R), self._on_device(guess_t),
+                             self._stages_for(kind, use_map))
+        return mm, torch.cat([flat, sanity])
+
+    def _on_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------
     def _create_keyframe(self, tim: float, points: MetricMap) -> None:
-        """Keyframe proposal + odometry factor + local-map update."""
+        """Keyframe proposal + annotations + odometry factor + local-map
+        update."""
         st = self.state
         prof = self.profiler
         if self.slam_backend is not None:
@@ -568,14 +687,31 @@ class LidarOdometry(FrontEndBase):
         else:
             kf_id = (st.last_kf + 1) if st.last_kf is not None else 0
 
+        wm = self.worldmodel
+        with wm.lock_for_write():
+            wm.add_entity(kf_id)
+            # the filtered layered cloud, which the nearby/LC checks align
+            wm.annotate(kf_id, ANNOTATION_NAME_PC_LAYERS, points)
+            if st.kf_decor_counter % self.params.viz_decor_decimation == 0:
+                decor = points.get("decimated") or next(iter(points.values()))
+                wm.annotate(kf_id, ANNOTATION_NAME_RENDER_DECORATION, {
+                    "points": decor.xyz.cpu().numpy(),
+                    "mask": decor.mask.cpu().numpy(),
+                    "point_size": self.params.viz_decor_pointsize,
+                })
+            st.kf_decor_counter += 1
+
         if st.last_kf is not None:
             rel = _f32_pose(st.accum_since_last_kf_R, st.accum_since_last_kf_t)
             if self.slam_backend is not None:
                 self.slam_backend.add_factor(FactorRelativePose3(
                     kf_from=st.last_kf, kf_to=kf_id, rel_pose=rel)).result()
+            wm.add_neighbors(st.last_kf, kf_id)
             with self._state_lock:
                 st.local_pose_graph.insert_edge(st.last_kf, kf_id, st.accum_since_last_kf_R,
                                                 st.accum_since_last_kf_t)
+                st.edge_log.append((st.last_kf, kf_id, st.accum_since_last_kf_R.copy(),
+                                    st.accum_since_last_kf_t.copy()))
         else:
             with self._state_lock:
                 st.local_pose_graph.insert_node(kf_id)
@@ -608,52 +744,327 @@ class LidarOdometry(FrontEndBase):
                               dedup_voxel=p.local_map_dedup_voxel,
                               keep_layers=keep or None, mode=p.local_map_build_mode)
 
-    def _prune_local_graph(self) -> None:
-        """Keep the local pose graph within ``max_KFs_local_graph`` nodes,
-        dropping the farthest from the newest keyframe (the part of the
-        reference's nearby-keyframe search that applies with an empty
-        search window)."""
-        st, p = self.state, self.params
+    # ------------------------------------------------------------------
+    # the nearby-keyframe / loop-closure search
+    # ------------------------------------------------------------------
+    def check_for_nearby_kfs(self) -> None:
+        """Prune the local graph, then pick this keyframe's checks: nearby
+        keyframes in ``[min_dist_to_matching, max_dist_to_matching]``
+        (decimated by stride to ``max_nearby_align_checks``; none when it
+        is 0, where the reference divides by zero) and the nearest keyframe
+        at least ``min_topo_dist_to_consider_loopclosure`` edges away within
+        ``max_dist_to_loop_closure``. Pairs already checked, already linked
+        or without a stored cloud are skipped. The checks run on the pool."""
+        st, p, prof = self.state, self.params, self.profiler
+        prof.enter("checkForNearbyKFs")
+        try:
+            with self._state_lock:
+                if st.last_kf is None:
+                    return
+                poses, topo = st.local_pose_graph.dijkstra_nodes_estimate(st.last_kf)
+                if len(st.local_pose_graph) > p.max_KFs_local_graph:
+                    by_dist = sorted(((np.linalg.norm(t_), n) for n, (R_, t_) in poses.items()),
+                                     reverse=True)
+                    for _, victim in by_dist[: len(st.local_pose_graph) - p.max_KFs_local_graph]:
+                        st.local_pose_graph.remove_node(victim)
+
+            d_max = max(p.max_dist_to_loop_closure, p.max_dist_to_matching)
+            nearby: List[Tuple[float, int, np.ndarray, np.ndarray]] = []
+            lc_best = None
+            wm = self.worldmodel
+            for node, (R_, t_) in poses.items():
+                if node == st.last_kf:
+                    continue
+                d = float(np.linalg.norm(t_))
+                if d < p.min_dist_to_matching or d > d_max:
+                    continue
+                is_lc = topo.get(node, 0) >= p.min_topo_dist_to_consider_loopclosure
+                if not is_lc and d > p.max_dist_to_matching:
+                    continue
+                pair = (min(node, st.last_kf), max(node, st.last_kf))
+                with self._state_lock:
+                    if pair in st.checked_KF_pairs or st.local_pose_graph.has_edge(*pair):
+                        continue
+                if node in wm.entity_neighbors(st.last_kf):
+                    continue
+                if not wm.has_annotation(node, ANNOTATION_NAME_PC_LAYERS):
+                    continue
+                if is_lc:
+                    if lc_best is None or d < lc_best[0]:
+                        lc_best = (d, node, R_, t_)
+                else:
+                    nearby.append((d, node, R_, t_))
+
+            nearby.sort(key=lambda c: (c[0], c[1]))
+            if p.max_nearby_align_checks <= 0:
+                nearby = []
+            elif len(nearby) > p.max_nearby_align_checks:
+                stride = max(1, len(nearby) // p.max_nearby_align_checks)
+                nearby = nearby[::stride][: p.max_nearby_align_checks]
+
+            cur = st.last_kf
+            with self._state_lock:
+                for _, node, _, _ in nearby + ([lc_best] if lc_best is not None else []):
+                    st.checked_KF_pairs.add((min(node, cur), max(node, cur)))
+            if nearby:
+                jobs = [(node, R_, t_) for _, node, R_, t_ in nearby]
+                self.log.info("nearby batch: KF %s vs %s", cur, [n for n, *_ in jobs])
+                self._submit(self._check_nearby_batch, cur, jobs)
+            if lc_best is not None:
+                _, node, R_, t_ = lc_best
+                self.log.info("LC check: KF %s <-> %s", cur, node)
+                self._submit(self._check_non_adjacent, "lc", cur, node, R_, t_)
+        finally:
+            prof.leave("checkForNearbyKFs")
+
+    def _submit(self, fn, *args) -> None:
+        """Run a check on the pool; ``drain`` counts it until it ends."""
+        with self._pending_lock:
+            self._nearby_inflight += 1
+        self._nearby_pool.submit(self._run_check, fn, *args)
+
+    def _run_check(self, fn, *args) -> None:
+        try:
+            fn(*args)
+        except Exception:  # noqa: BLE001 -- per-check error isolation
+            self.log.exception("exception in %s", fn.__name__)
+        finally:
+            with self._pending_lock:
+                self._nearby_inflight -= 1
+
+    def _check_nearby_batch(self, cur_kf: int, jobs) -> None:
+        """All nearby checks of one keyframe as ONE batched align, padded
+        to ``max_nearby_align_checks`` lanes; clouds of another layer
+        structure go through per-pair checks instead."""
+        wm, p = self.worldmodel, self.params
+        cur_pc = wm.annotation(cur_kf, ANNOTATION_NAME_PC_LAYERS)
+        if cur_pc is None:
+            return
+        clouds, keep = [], []
+        for node, R_, t_ in jobs:
+            pc = wm.annotation(node, ANNOTATION_NAME_PC_LAYERS)
+            if pc is not None:
+                clouds.append(pc)
+                keep.append((node, R_, t_))
+        if not clouds:
+            return
+        k_real = len(clouds)
+        # source side only: the target keeps full density, the scale of the
+        # paired-ratio goodness
+        clouds = [_decimate_layers(c, p.nearby_decimate) for c in clouds]
+        k_pad = max(1, p.max_nearby_align_checks)
+        clouds = (clouds + [clouds[0]] * k_pad)[:k_pad]
+        keep = keep[:k_pad]
+        try:
+            to_pcs = _stack_maps(clouds)
+        except ValueError:
+            for node, R_, t_ in keep:
+                self._check_non_adjacent("nearby", cur_kf, node, R_, t_)
+            return
+        eye, zero = np.eye(3), np.zeros(3)
+        pad = k_pad - len(keep)
+        gRs = self._on_device(np.stack([R_ for _, R_, _ in keep] + [eye] * pad))
+        gts = self._on_device(np.stack([t_ for _, _, t_ in keep] + [zero] * pad))
+        prof = self.profiler
+        prof.enter("checkNonAdjacent.nearby_batch_align")
+        try:
+            flats = _packed_align(to_pcs, cur_pc, gRs, gts,
+                                  self._nearby_stages()).cpu().numpy()  # one readback
+        finally:
+            prof.leave("checkNonAdjacent.nearby_batch_align")
+        for i in range(k_real):
+            node, R_, t_ = keep[i]
+            out = _unpack_icp_result(flats[i])
+            self._accept_non_adjacent("nearby", cur_kf, node, R_, t_, out.goodness,
+                                      out.found_pose_to_wrt_from)
+
+    def _nearby_stages(self):
+        """NEARBY_ALIGN stages with the nearby batch's candidate cache and
+        iteration cap (loop-closure stages are never patched: the Monte-
+        Carlo wide-basin search needs the unrestricted nearest neighbour)."""
+        stages = self.icp_cases[AlignKind.NEARBY_ALIGN]
+        p = self.params
+        if p.nearby_cand_k > 0:
+            stages = tuple(dataclasses.replace(s, matchers=tuple(
+                dataclasses.replace(m, cand_k=p.nearby_cand_k) if m.kind in _CAND_KINDS else m
+                for m in s.matchers)) for s in stages)
+        if p.nearby_cand_knn and p.nearby_cand_k > 0:
+            stages = tuple(dataclasses.replace(s, matchers=tuple(
+                dataclasses.replace(m, cand_k=max(p.nearby_cand_k, m.knn + 3))
+                if m.kind in _CAND_KNN_KINDS else m for m in s.matchers)) for s in stages)
+        if p.nearby_max_iterations > 0:
+            stages = tuple(dataclasses.replace(
+                s, max_iterations=min(s.max_iterations, p.nearby_max_iterations))
+                for s in stages)
+        return stages
+
+    def _lc_gate(self) -> float:
+        """Loop-closure goodness gate: fixed, or (``min_icp_goodness_lc_auto``)
+        0.9 x the lower quartile of the accepted nearby goodness once 8 are
+        known, clipped to [0.40, 0.75]."""
+        p = self.params
+        vals = list(self._nearby_goodness)
+        if not p.min_icp_goodness_lc_auto or len(vals) < 8:
+            return p.min_icp_goodness_lc
+        return float(np.clip(0.9 * np.quantile(vals, 0.25), 0.40, 0.75))
+
+    def _lc_submap_builder(self) -> DeviceLocalMap:
+        """A map builder for the loop-closure target: window 2K + 1 slots,
+        the layers the loop-closure stages target."""
+        p = self.params
+        keep = set()
+        for stage in self.icp_cases[AlignKind.LOOP_CLOSURE]:
+            keep.update(mt.tgt_layer for mt in stage.matchers)
+            keep.update(q.tgt_layer for q in stage.quality)
+        return DeviceLocalMap(window=2 * p.lc_submap_keyframes + 1,
+                              capacity_mult=p.lc_submap_capacity_mult,
+                              dedup_voxel=p.local_map_dedup_voxel,
+                              keep_layers=keep or None, mode=p.local_map_build_mode)
+
+    def _build_lc_submap(self, center_kf: int) -> Optional[MetricMap]:
+        """The candidate keyframe and its graph neighbours up to
+        ``lc_submap_keyframes`` edges away (at most 2K + 1, nearest first),
+        aggregated in the candidate's frame."""
+        p, st, wm = self.params, self.state, self.worldmodel
+        K = p.lc_submap_keyframes
         with self._state_lock:
-            graph = st.local_pose_graph
-            if st.last_kf is None or len(graph) <= p.max_KFs_local_graph:
-                return
-            poses, _ = graph.dijkstra_nodes_estimate(st.last_kf)
-            by_dist = sorted(((np.linalg.norm(t_), n) for n, (R_, t_) in poses.items()),
-                             reverse=True)
-            for _, victim in by_dist[: len(graph) - p.max_KFs_local_graph]:
-                graph.remove_node(victim)
+            poses, topo = st.local_pose_graph.dijkstra_nodes_estimate(center_kf)
+        if center_kf not in poses:
+            return None
+        picks = [center_kf]
+        for d, n in sorted((topo.get(n, 10**9), n) for n in poses if n != center_kf):
+            if d > K or len(picks) >= 2 * K + 1:
+                break
+            picks.append(n)
+        builder = self._lc_submap_builder()
+        n_added = 0
+        for n in picks:
+            pc = wm.annotation(n, ANNOTATION_NAME_PC_LAYERS)
+            if pc is None:
+                continue
+            builder.add_keyframe(pc, (np.eye(3), np.zeros(3)) if n == center_kf else poses[n])
+            n_added += 1
+        return builder.build() if n_added else None
+
+    def _check_non_adjacent(self, kind: str, cur_kf: int, other_kf: int,
+                            R_: np.ndarray, t_: np.ndarray) -> None:
+        """One loop-closure check (all Monte-Carlo guesses as one batch,
+        the best quality wins) or one per-pair nearby check. ``(R_, t_)``
+        is the graph's pose of ``other_kf`` in ``cur_kf``'s frame."""
+        st, p, wm = self.state, self.params, self.worldmodel
+        cur_pc = wm.annotation(cur_kf, ANNOTATION_NAME_PC_LAYERS)
+        oth_pc = wm.annotation(other_kf, ANNOTATION_NAME_PC_LAYERS)
+        if cur_pc is None or oth_pc is None:
+            return
+        min_goodness = None
+        if kind == "lc":
+            with self._state_lock:  # two pool workers must not share a seed
+                st.mc_seed += 1
+                mc_seed = st.mc_seed
+            submap = self._build_lc_submap(other_kf) if p.lc_submap_keyframes > 0 else None
+            if submap is not None:
+                # the current keyframe (one lane per guess) onto the submap
+                # around the candidate: the guess is the pose of current in
+                # the candidate's frame
+                center = se3_np.inverse((np.asarray(R_, float), np.asarray(t_, float)))
+                src_pc, tgt_pc = cur_pc, submap
+            else:
+                center, src_pc, tgt_pc = (R_, t_), oth_pc, cur_pc
+            guesses = monte_carlo_guesses(
+                torch.Generator().manual_seed(mc_seed),
+                se3.Pose(self._on_device(center[0]), self._on_device(center[1])),
+                p.loop_closure_montecarlo_samples,
+                0.1 * p.max_dist_to_loop_closure, 2.0 * DEG2RAD)
+            prof = self.profiler
+            prof.enter("checkNonAdjacent.lc_batch_align")
+            try:
+                flats = _packed_align(src_pc, tgt_pc, guesses.R, guesses.t,
+                                      self.icp_cases[AlignKind.LOOP_CLOSURE]).cpu().numpy()
+            finally:
+                prof.leave("checkNonAdjacent.lc_batch_align")
+            out = _unpack_icp_result(flats[int(np.argmax(flats[:, 48]))])
+            goodness, pose = out.goodness, out.found_pose_to_wrt_from
+            if submap is not None:
+                # the edge wants the pose of the candidate in current's frame
+                pose = _f32_pose(*se3_np.inverse(_np_pose(pose)))
+            min_goodness = self._lc_gate()
+        else:
+            # the batch path's stages and decimation, so both make the same
+            # edge decisions
+            out = self.run_one_icp(_decimate_layers(oth_pc, p.nearby_decimate), cur_pc, R_, t_,
+                                   stages=self._nearby_stages(), tag="nearby")
+            goodness, pose = out.goodness, out.found_pose_to_wrt_from
+        self._accept_non_adjacent(kind, cur_kf, other_kf, R_, t_, goodness, pose,
+                                  min_goodness=min_goodness)
+
+    def _accept_non_adjacent(self, kind, cur_kf, other_kf, R_, t_, goodness, pose,
+                             min_goodness=None) -> None:
+        """Acceptance gate and factor/edge emission: goodness at least the
+        gate and, for nearby checks, a correction of the graph's guess
+        under ``max_correction_ratio`` of its length."""
+        p, st = self.params, self.state
+        if min_goodness is None:
+            min_goodness = self._lc_gate() if kind == "lc" else p.min_icp_goodness
+        Rp, tp_ = _np_pose(pose)
+        Ri, ti = se3_np.inverse((np.asarray(R_, float), np.asarray(t_, float)))
+        corr = float(np.linalg.norm(se3_np.compose((Ri, ti), (Rp, tp_))[1]))
+        init_norm = max(float(np.linalg.norm(t_)), 0.1)
+        accept = goodness >= min_goodness and (
+            kind == "lc" or corr < p.max_correction_ratio * init_norm)
+        self.profiler.register_user_measure(f"checkNonAdjacent.{kind}.goodness", goodness)
+        # 1/0 per check: the counter's count is the checks, its total the accepts
+        self.profiler.register_user_measure(f"checkNonAdjacent.{kind}.accepted", float(accept))
+        if not accept:
+            self.log.info("%s rejected: KF %s <-> %s goodness=%.2f corr=%.2fm",
+                          kind, cur_kf, other_kf, goodness, corr)
+            return
+        if kind == "nearby":
+            self._nearby_goodness.append(float(goodness))
+        if self.slam_backend is not None:
+            self.slam_backend.add_factor(FactorRelativePose3(
+                kf_from=cur_kf, kf_to=other_kf, rel_pose=pose)).result()
+        self.worldmodel.add_neighbors(cur_kf, other_kf)
+        with self._state_lock:
+            st.local_pose_graph.insert_edge(cur_kf, other_kf, Rp, tp_)
+            st.edge_log.append((cur_kf, other_kf, Rp.copy(), tp_.copy()))
+            if kind == "lc":
+                st.lc_pairs.append((cur_kf, other_kf))
+        self.log.info("%s ACCEPTED: KF %s <-> %s goodness=%.2f",
+                      "loop closure" if kind == "lc" else "nearby edge",
+                      cur_kf, other_kf, goodness)
 
     def run_one_icp(self, to_pc: MetricMap, from_pc: MetricMap, guess_R, guess_t,
                     stages, tag: str = "icp") -> ICPOutput:
         """Align ``to_pc`` onto ``from_pc`` from the guess; one readback."""
         self.profiler.enter(f"run_one_icp.{tag}")
         try:
-            guess = se3.Pose(torch.as_tensor(guess_R, dtype=torch.float32, device=self.device),
-                             torch.as_tensor(guess_t, dtype=torch.float32, device=self.device))
-            res = align_pipeline(to_pc, from_pc, guess, stages)
-            return _unpack_icp_result(_pack_icp_result(res).cpu().numpy())
+            flat = _packed_align(to_pc, from_pc, self._on_device(guess_R),
+                                 self._on_device(guess_t), stages)
+            return _unpack_icp_result(flat.cpu().numpy())
         finally:
             self.profiler.leave(f"run_one_icp.{tag}")
 
     # ------------------------------------------------------------------
     def drain(self, timeout: float = 600.0) -> int:
-        """Block until queued scans finish; returns the number still in
-        flight at the timeout (also recorded as ``drain.jobs_abandoned``)."""
+        """Block until queued scans and nearby/LC checks finish; returns the
+        number still in flight at the timeout (also recorded as
+        ``drain.jobs_abandoned``)."""
         import time as _time
         t0 = _time.monotonic()
         abandoned = 0
         while _time.monotonic() - t0 < timeout:
             with self._pending_lock:
-                if self._pending == 0:
+                if self._pending == 0 and self._nearby_inflight == 0:
                     break
             _time.sleep(0.005)
         else:
             with self._pending_lock:
-                abandoned = self._pending
-            self.log.warning("drain(): %d scans still queued at timeout", abandoned)
+                abandoned = self._pending + self._nearby_inflight
+            self.log.warning("drain(): %d scans or nearby/LC checks still running at timeout",
+                             abandoned)
         self.profiler.register_user_measure("drain.jobs_abandoned", abandoned)
         return abandoned
 
     def shutdown(self) -> None:
         self._pipeline_pool.shutdown(wait=True)
+        self._nearby_pool.shutdown(wait=True)

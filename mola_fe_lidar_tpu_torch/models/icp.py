@@ -3,18 +3,28 @@ the matchers and loop shapes of the main path).
 
 Ported: the ``point2plane_normals`` and ``point2line_knn`` matchers, the
 Gauss-Newton solver with its weak prior, the paired-ratio quality with its
-fixed subsample, the candidate cache (top-K refresh every ``cand_refresh``
-iterations, exact re-argmin over the K candidates in between) and the plain
-loop. Nearest-neighbour searches go through the hand-written kernels
-(``ops/knn_kernel.py`` K1, ``ops/nn_kernel.py`` K2), which take their plain
-twins for CPU tensors: every ``nn_backend`` of the reference except
-``"grid"`` is the same exact search here.
+fixed subsample and its symmetric (reverse-direction) form, the candidate
+cache (top-K refresh every ``cand_refresh`` iterations, exact re-argmin over
+the K candidates in between) and the plain loop. Nearest-neighbour searches
+go through the hand-written kernels (``ops/knn_kernel.py`` K1,
+``ops/nn_kernel.py`` K2), which take their plain twins for CPU tensors:
+every ``nn_backend`` of the reference except ``"grid"`` is the same exact
+search here.
 
 The reference runs the whole loop as one ``lax.while_loop``. Here the host
 reads the iteration count and the convergence flag once per block of
 ``cand_refresh`` iterations (4 for the plain loop); inside a block,
 converged or over-budget iterations are frozen exactly as the reference's
 ``_cand_block`` freezes them, so the iterates are the reference's.
+
+Batches (the reference's ``vmap`` of ``align``, ``parallel/batch.py``): an
+``init_pose`` with a leading axis ``[B]`` aligns B lanes at once. Layers
+given as one cloud ``[N,3]`` are shared by every lane (a stride-0 expand,
+never copied); layers ``[B,N,3]`` are per lane. Each lane has its own
+iteration count and convergence flag and is frozen once it is done, as
+under ``vmap`` of the ``while_loop``; the loop ends when every lane is done
+or at the cap, with one host read per block for the whole batch, and every
+search of a block is one K1/K2 launch for all lanes.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..cloud.metric_map import MetricMap
+from ..cloud.metric_map import MetricMap, PointCloud
 from ..geometry import se3
 from ..ops import eigen3, knn_kernel, nn_kernel
 from ..ops.matching import NNResult
@@ -45,17 +55,17 @@ _EXACT_BACKENDS = ("auto", "xla", "fused", "mxu", "pallas")
 
 class ICPResult(NamedTuple):
     pose: se3.Pose
-    cov: torch.Tensor           # f32[6, 6]
-    quality: torch.Tensor       # f32[]
-    n_iterations: torch.Tensor  # i32[]
-    term_reason: torch.Tensor   # i32[]
+    cov: torch.Tensor           # f32[..., 6, 6]
+    quality: torch.Tensor       # f32[...]
+    n_iterations: torch.Tensor  # i32[...]
+    term_reason: torch.Tensor   # i32[...]
 
 
 class _Pairings(NamedTuple):
-    p: torch.Tensor  # f32[K,3] source points (untransformed)
-    q: torch.Tensor  # f32[K,3] plane anchors
-    n: torch.Tensor  # f32[K,3] plane normals
-    w: torch.Tensor  # f32[K] weights (0 drops)
+    p: torch.Tensor  # f32[..., K, 3] source points (untransformed)
+    q: torch.Tensor  # f32[..., K, 3] plane anchors
+    n: torch.Tensor  # f32[..., K, 3] plane normals
+    w: torch.Tensor  # f32[..., K] weights (0 drops)
 
 
 def _resolve_backend(backend: str) -> None:
@@ -96,10 +106,6 @@ def check_params(params: ICPParams) -> None:
     for q in params.quality:
         if q.kind != "paired_ratio":
             raise ValueError(f"unknown quality kind {q.kind!r}")
-        if q.symmetric:
-            raise NotImplementedError(
-                "symmetric quality is not ported (ROADMAP Queue 1 item 11: "
-                "loop closure)")
 
 
 def _cand_eligible(m: Matcher) -> bool:
@@ -111,7 +117,20 @@ def _cand_eligible(m: Matcher) -> bool:
 
 
 def _c(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous in each lane; a lane-shared operand (stride-0 lane axis)
+    stays shared."""
+    if x.dim() > 1 and x.stride(0) == 0:
+        return x[0].contiguous().expand_as(x)
     return x.contiguous()
+
+
+def _take(pc: PointCloud, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for a field ``x`` of the cloud ``pc``, per lane when the
+    cloud is batched (``x [B, M, ...]``, ``idx [B, ...]``)."""
+    if pc.xyz.dim() == 2:
+        return x[idx]
+    lane = torch.arange(idx.shape[0], device=idx.device)
+    return x[lane.view(-1, *([1] * (idx.dim() - 1))), idx]
 
 
 def _nn_1(sp, src_mask, tgt) -> NNResult:
@@ -126,9 +145,9 @@ def _refresh_cands(m: Matcher, pose, src, tgt) -> torch.Tensor:
 
 def _cand_sq_dists(sp, tgt, cand_idx):
     cand_idx = cand_idx.long()
-    diff = tgt.xyz[cand_idx] - sp[..., None, :]
+    diff = _take(tgt, tgt.xyz, cand_idx) - sp[..., None, :]
     d2 = torch.sum(diff * diff, dim=-1)
-    return torch.where(tgt.mask[cand_idx] > 0.5, d2, torch.full_like(d2, 1e30))
+    return torch.where(_take(tgt, tgt.mask, cand_idx) > 0.5, d2, torch.full_like(d2, 1e30))
 
 
 def _knn_from_cands(sp, tgt, cand_idx, k: int) -> NNResult:
@@ -167,11 +186,11 @@ def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
         nn = (_nn_from_cands(sp, tgt, cand_idx) if cand_idx is not None
               else _nn_1(sp, src.mask, tgt))
         sel = nn.idx.long()
-        q = tgt.xyz[sel]
-        normals = tgt.attrs["normal"][sel]
-        gate = (tgt.attrs["planarity"][sel][..., 0] if "planarity" in tgt.attrs
+        q = _take(tgt, tgt.xyz, sel)
+        normals = _take(tgt, tgt.attrs["normal"], sel)
+        gate = (_take(tgt, tgt.attrs["planarity"], sel)[..., 0] if "planarity" in tgt.attrs
                 else torch.ones_like(nn.dist))
-        w = src.mask * (nn.dist < m.distance_threshold).to(f32) * gate * act
+        w = src.mask * (nn.dist < m.distance_threshold).to(f32) * gate * act[..., None]
         return _Pairings(src.xyz, q, normals, w)
 
     if m.kind == "point2line_knn":
@@ -181,7 +200,7 @@ def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
             nn = _knn_from_cands(sp, tgt, cand_idx, m.knn)
         else:
             nn = knn_kernel.knn(_c(sp), _c(src.mask), _c(tgt.xyz), _c(tgt.mask), m.knn)
-        neigh = tgt.xyz[nn.idx.long()]
+        neigh = _take(tgt, tgt.xyz, nn.idx.long())
         valid = (nn.dist < 1e9).to(f32)
         cnt = torch.clamp(torch.sum(valid, dim=-1), min=1.0)
         centroid = torch.sum(neigh * valid[..., None], dim=-2) / cnt[..., None]
@@ -191,15 +210,16 @@ def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
         dirv = eigen3.largest_eigenvector_3x3(cov, evs)
         linear = evs[..., 2] >= (1.0 / max(m.plane_eigen_threshold, 1e-3)) * torch.clamp(
             evs[..., 1], min=1e-9)
-        ex = torch.tensor([1.0, 0.0, 0.0], dtype=f32, device=sp.device).expand_as(dirv)
-        ey = torch.tensor([0.0, 1.0, 0.0], dtype=f32, device=sp.device).expand_as(dirv)
-        a = torch.where(torch.abs(dirv[..., 0:1]) < 0.9, ex, ey)
+        # the x axis, or the y axis where the line runs along x (built on
+        # the device: a constant copied from the host would sync the stream)
+        use_x = (torch.abs(dirv[..., 0:1]) < 0.9).to(f32)
+        a = torch.cat([use_x, 1.0 - use_x, torch.zeros_like(use_x)], dim=-1)
         n1 = torch.linalg.cross(dirv, a, dim=-1)
         n1 = n1 / torch.clamp(torch.linalg.vector_norm(n1, dim=-1, keepdim=True), min=1e-9)
         n2 = torch.linalg.cross(dirv, n1, dim=-1)
         w1 = (src.mask * (nn.dist[..., 0] < m.distance_threshold).to(f32)
-              * linear.to(f32) * (torch.sum(valid, dim=-1) >= 3.0).to(f32) * act)
-        n_rows = torch.stack([n1, n2], dim=-2).reshape(-1, 3)
+              * linear.to(f32) * (torch.sum(valid, dim=-1) >= 3.0).to(f32) * act[..., None])
+        n_rows = torch.stack([n1, n2], dim=-2).flatten(-3, -2)
         return _Pairings(torch.repeat_interleave(src.xyz, 2, dim=-2),
                          torch.repeat_interleave(centroid, 2, dim=-2),
                          n_rows, torch.repeat_interleave(w1, 2, dim=-1))
@@ -215,45 +235,56 @@ def _gather(pose, it, src_map, tgt_map, params: ICPParams, cands=None) -> _Pairi
                        for f in ("p", "q", "n", "w")))
 
 
-def _solve(pose, plane: _Pairings, params: ICPParams, init_pose) -> se3.Pose:
+def _prior_weights(params: ICPParams, dev) -> torch.Tensor:
+    """The weak prior's diagonal weights, or None without a prior."""
     s = params.solver
-    prior_pose, prior_w = None, None
-    if s.prior_sigma_trans > 0 or s.prior_sigma_rot > 0:
-        prior_pose = init_pose
-        wt = 1.0 / s.prior_sigma_trans ** 2 if s.prior_sigma_trans > 0 else 0.0
-        wr = 1.0 / s.prior_sigma_rot ** 2 if s.prior_sigma_rot > 0 else 0.0
-        prior_w = torch.tensor([wt] * 3 + [wr] * 3, dtype=torch.float32,
-                               device=pose.t.device)
+    if not (s.prior_sigma_trans > 0 or s.prior_sigma_rot > 0):
+        return None
+    wt = 1.0 / s.prior_sigma_trans ** 2 if s.prior_sigma_trans > 0 else 0.0
+    wr = 1.0 / s.prior_sigma_rot ** 2 if s.prior_sigma_rot > 0 else 0.0
+    return torch.tensor([wt] * 3 + [wr] * 3, dtype=torch.float32, device=dev)
+
+
+def _solve(pose, plane: _Pairings, params: ICPParams, init_pose, prior_w) -> se3.Pose:
+    s = params.solver
     return gauss_newton.point_to_plane_step(
         pose, plane.p, plane.q, plane.n, plane.w,
         inner_iterations=s.max_iterations, damping=s.damping,
-        prior_pose=prior_pose, prior_w=prior_w).pose
+        prior_pose=init_pose if prior_w is not None else None, prior_w=prior_w).pose
 
 
 @functools.lru_cache(maxsize=None)
-def _quality_subsample(n: int, keep: int) -> np.ndarray:
-    """The reference's fixed quality subsample (numpy, seed 0xC0FFEE)."""
-    return np.sort(np.random.default_rng(0xC0FFEE).permutation(n)[:keep])
+def _quality_subsample(n: int, keep: int, dev: torch.device) -> torch.Tensor:
+    """The reference's fixed quality subsample (numpy, seed 0xC0FFEE), kept
+    on ``dev``."""
+    return torch.from_numpy(np.sort(np.random.default_rng(0xC0FFEE).permutation(n)[:keep])).to(dev)
 
 
 def _quality(pose, src_map, tgt_map, params: ICPParams) -> torch.Tensor:
     """Weighted mean of the paired ratios, forced to 0 when an evaluator
-    falls below its ``required_min``."""
+    falls below its ``required_min``. A symmetric evaluator also pairs the
+    target layer into the source layer under the inverse pose and keeps the
+    larger ratio (occlusion-asymmetric loop-closure viewpoints)."""
     dev = pose.t.device
+    gate = torch.ones(pose.t.shape[:-1], device=dev)
     if not params.quality:
-        return torch.ones((), device=dev)
+        return gate
     vals = []
-    gate = torch.ones((), device=dev)
     for qc in params.quality:
         src = src_map[qc.src_layer]
         tgt = tgt_map[qc.tgt_layer]
         sxyz, smask = src.xyz, src.mask
         n = sxyz.shape[-2]
         if qc.max_points and n > qc.max_points:
-            sel = torch.from_numpy(_quality_subsample(n, qc.max_points)).to(dev)
-            sxyz, smask = sxyz[sel], smask[sel]
+            sel = _quality_subsample(n, qc.max_points, dev)
+            sxyz, smask = sxyz[..., sel, :], smask[..., sel]
         nn = _nn_1(se3.transform(pose, sxyz), smask, tgt)
         ratio = quality_mod.paired_ratio(nn.dist, smask, qc.threshold_distance)
+        if qc.symmetric:
+            back = se3.transform(se3.inverse(pose), tgt.xyz)
+            nn_r = _nn_1(back, tgt.mask, src)
+            ratio = torch.maximum(ratio, quality_mod.paired_ratio(
+                nn_r.dist, tgt.mask, qc.threshold_distance))
         if qc.weight > 0.0:
             vals.append(qc.weight * ratio)
         if qc.required_min > 0.0:
@@ -265,23 +296,44 @@ def _quality(pose, src_map, tgt_map, params: ICPParams) -> torch.Tensor:
 
 
 def _freeze(active, new_pose: se3.Pose, pose: se3.Pose) -> se3.Pose:
-    return se3.Pose(torch.where(active, new_pose.R, pose.R),
-                    torch.where(active, new_pose.t, pose.t))
+    return se3.Pose(torch.where(active[..., None, None], new_pose.R, pose.R),
+                    torch.where(active[..., None], new_pose.t, pose.t))
+
+
+def _lift(mm: MetricMap, batch: int) -> MetricMap:
+    """Every layer with a leading lane axis: one-cloud layers become
+    stride-0 expands shared by all lanes."""
+    out = {}
+    for name, pc in mm.items():
+        if pc.xyz.dim() == 3:
+            if pc.xyz.shape[0] != batch:
+                raise ValueError(f"layer {name!r} has {pc.xyz.shape[0]} lanes, the poses {batch}")
+            out[name] = pc
+        else:
+            out[name] = PointCloud(pc.xyz.expand(batch, *pc.xyz.shape),
+                                   pc.mask.expand(batch, *pc.mask.shape),
+                                   {k: v.expand(batch, *v.shape) for k, v in pc.attrs.items()})
+    return out
 
 
 def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
           params: ICPParams) -> ICPResult:
     """Register ``src_map`` onto ``tgt_map`` from ``init_pose``; the pose
-    maps source-frame points into the target frame."""
+    maps source-frame points into the target frame. With ``init_pose`` of
+    shape ``[B]`` the result is per lane (see the module docstring)."""
     check_params(params)
     dev = init_pose.t.device
+    lanes = tuple(init_pose.t.shape[:-1])
+    if lanes:
+        src_map, tgt_map = _lift(src_map, lanes[0]), _lift(tgt_map, lanes[0])
     elig = tuple(i for i, m in enumerate(params.matchers) if _cand_eligible(m))
     uses_cands = bool(elig)
     block = max(1, params.cand_refresh) if uses_cands else _PLAIN_BLOCK
+    prior_w = _prior_weights(params, dev)
 
     def step(pose, it, cands):
         plane = _gather(pose, it, src_map, tgt_map, params, cands)
-        new_pose = _solve(pose, plane, params, init_pose)
+        new_pose = _solve(pose, plane, params, init_pose, prior_w)
         # too few effective pairings: stall instead of trusting the solve
         new_pose = _freeze(torch.sum(plane.w, dim=-1) >= 6.0, new_pose, pose)
         delta = se3.log(se3.compose(new_pose, se3.inverse(pose)))
@@ -290,9 +342,9 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
         return new_pose, converged
 
     pose = init_pose
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    n_it, finished = 0, params.max_iterations <= 0
+    it = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    done = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    finished = params.max_iterations <= 0
     while not finished:
         cands = None
         if uses_cands:
@@ -307,9 +359,10 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
             pose = _freeze(active, new_pose, pose)
             done = done | (active & converged)
             it = it + active.to(torch.int32)
-        # the one host read per block
-        n_it, is_done = torch.stack([it.to(torch.float32), done.to(torch.float32)]).tolist()
-        finished = is_done > 0.5 or n_it >= params.max_iterations
+        # the one host read per block, for every lane
+        n_it, is_done = torch.stack([it.to(torch.float32),
+                                     done.to(torch.float32)]).reshape(2, -1).tolist()
+        finished = all(d > 0.5 or n >= params.max_iterations for n, d in zip(n_it, is_done))
 
     # final system at the converged pose -> covariance
     plane = _gather(pose, it, src_map, tgt_map, params)

@@ -100,12 +100,12 @@ def build(defines=()) -> Path:
 def load(path: Path) -> ctypes.CDLL:
     """Load a built library and declare its C entry points."""
     lib = ctypes.CDLL(str(path))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    # src, src_mask, tgt, tgt_mask, n, m, [k,] rows, cluster, tiles,
-    # part_len, chunk, smem, out_dist, out_idx, stream
-    lib.mola_knn_launch.argtypes = [vp] * 4 + [i32] * 9 + [vp] * 3
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # src, src_mask, tgt, tgt_mask, n, m, [k,] batch, the four lane strides,
+    # rows, cluster, tiles, part_len, chunk, smem, out_dist, out_idx, stream
+    lib.mola_knn_launch.argtypes = [vp] * 4 + [i32] * 4 + [i64] * 4 + [i32] * 6 + [vp] * 3
     lib.mola_knn_launch.restype = i32
-    lib.mola_nn_launch.argtypes = [vp] * 4 + [i32] * 8 + [vp] * 3
+    lib.mola_nn_launch.argtypes = [vp] * 4 + [i32] * 3 + [i64] * 4 + [i32] * 6 + [vp] * 3
     lib.mola_nn_launch.restype = i32
     lib.mola_knn_max_active_clusters.argtypes = [i32] * 4
     lib.mola_knn_max_active_clusters.restype = i32

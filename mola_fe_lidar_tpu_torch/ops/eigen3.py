@@ -51,7 +51,7 @@ def smallest_eigenvector_3x3(A: torch.Tensor, eigenvalues=None,
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     v, n = _best_column((A - e1[..., None, None] * eye) @ (A - e2[..., None, None] * eye))
     ok = n[..., 0] > torch.clamp(1e-5 * e2 * e2, min=1e-9)
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device).expand_as(v)
+    fallback = eye[2].expand_as(v)  # +z, made on the device (no host copy)
     v = torch.where(ok[..., None], v / torch.where(ok[..., None], n, torch.ones_like(n)), fallback)
     return (v, ok) if return_valid else v
 
@@ -65,5 +65,5 @@ def largest_eigenvector_3x3(A: torch.Tensor, eigenvalues=None) -> torch.Tensor:
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     v, n = _best_column((A - e0[..., None, None] * eye) @ (A - e1[..., None, None] * eye))
     ok = n[..., 0] > 1e-9
-    fallback = torch.tensor([1.0, 0.0, 0.0], dtype=A.dtype, device=A.device).expand_as(v)
+    fallback = eye[0].expand_as(v)  # +x
     return torch.where(ok[..., None], v / torch.where(ok[..., None], n, torch.ones_like(n)), fallback)

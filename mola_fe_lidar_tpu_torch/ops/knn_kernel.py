@@ -8,6 +8,12 @@
 path it serves the candidate-cache refreshes (k = 4 for decimated -> planes
 and k = 8 for edges -> edges) and the point-to-line matcher (k = 5).
 
+Both wrappers take one search (``src [N,3]``, ``tgt [M,3]``) or a batch of
+B independent ones (``src [B,N,3]``, ``tgt [B,M,3]``, masks ``[B,N]`` /
+``[B,M]``) in one launch: the nearby-keyframe batch and the loop-closure
+Monte-Carlo batch. Each lane must be contiguous; an operand whose lane
+stride is 0 (``Tensor.expand`` of one cloud) is shared, never copied.
+
 :func:`plan_launch` is the host-side launch plan shared with K2
 (``ops/nn_kernel.py``): a pure function of the shape and the SM count, so
 the CPU tests check it without a card.
@@ -36,7 +42,7 @@ MIN_PART = 1024    # targets below which a part costs more than more blocks gain
 MAX_TILES = 65535  # grid.y limit
 
 #: launches of the CUDA kernel through :func:`knn` (plain-twin calls on the
-#: CPU do not count), in all and per ``(n, m, k)``
+#: CPU do not count), in all and per ``(B, n, m, k)`` (B = 1 unbatched)
 launches = 0
 launches_by_shape: Counter = Counter()
 
@@ -133,28 +139,37 @@ def cached_plan(device: torch.device, n: int, m: int, k: int) -> LaunchPlan:
     return plan
 
 
-def check_inputs(src, src_mask, tgt, tgt_mask) -> None:
-    """Shared argument checks of the K1/K2 wrappers."""
+def check_inputs(src, src_mask, tgt, tgt_mask) -> int:
+    """Shared argument checks of the K1/K2 wrappers; returns the batch size
+    B (1 for unbatched inputs)."""
     dev = src.device
-    for name, x, shape in (("src", src, (None, 3)), ("src_mask", src_mask, (src.shape[0],)),
-                           ("tgt", tgt, (None, 3)), ("tgt_mask", tgt_mask, (tgt.shape[0],))):
+    batched = src.dim() == 3
+    lead = tuple(src.shape[:1]) if batched else ()
+    for name, x, shape in (("src", src, (*lead, None, 3)),
+                           ("src_mask", src_mask, (*lead, src.shape[-2])),
+                           ("tgt", tgt, (*lead, None, 3)),
+                           ("tgt_mask", tgt_mask, (*lead, tgt.shape[-2]))):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, src on {dev}")
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if x.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, x.shape)):
             raise ValueError(f"{name} has shape {tuple(x.shape)}, want {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if tgt.shape[0] == 0:
+        if batched and x.shape[0] == 0:
+            raise ValueError("empty batch")
+        if not (x[0] if batched else x).is_contiguous():
+            raise ValueError(f"{name} must be contiguous" + (" in each lane" if batched else ""))
+    if tgt.shape[-2] == 0:
         raise ValueError("empty target cloud")
+    return src.shape[0] if batched else 1
 
 
 def launch(src, src_mask, tgt, tgt_mask, k: int, plan: LaunchPlan, dist, idx,
            lib=None) -> None:
     """One launch of the search with an explicit plan into ``dist``/``idx``
-    (``[n, k]``, or ``[n]`` for k = 1), through K2's entry point for k = 1
-    and K1's otherwise, on the current stream of the tensors' device. The
+    (``[..., n, k]``, or ``[..., n]`` for K2), through K2's entry point for
+    the 1-NN form and K1's otherwise, on the current stream of the tensors'
+    device. A batch runs its lanes on grid.z, each with ``plan``. The
     wrappers call it; tuning runs may call it with another plan or another
     build of the library (``lib``)."""
     lib = lib or cuda_build.library()
@@ -162,20 +177,23 @@ def launch(src, src_mask, tgt, tgt_mask, k: int, plan: LaunchPlan, dist, idx,
     if dev != torch.cuda.current_device():
         with torch.cuda.device(dev):
             return launch(src, src_mask, tgt, tgt_mask, k, plan, dist, idx, lib)
-    args = (src.data_ptr(), src_mask.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
-            src.shape[0], tgt.shape[0])
-    shape = (plan.rows, plan.cluster, plan.tiles, plan.part_len,
+    batched = src.dim() == 3
+    lane_strides = tuple(x.stride(0) if batched else 0 for x in (src, src_mask, tgt, tgt_mask))
+    ptrs = (src.data_ptr(), src_mask.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
+            src.shape[-2], tgt.shape[-2])
+    shape = (src.shape[0] if batched else 1, *lane_strides,
+             plan.rows, plan.cluster, plan.tiles, plan.part_len,
              plan.chunk, plan.smem, dist.data_ptr(), idx.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
-    if dist.dim() == 1:
-        cuda_build.check(lib.mola_nn_launch(*args, *shape), "nearest_neighbors")
+    if dist.dim() < src.dim():
+        cuda_build.check(lib.mola_nn_launch(*ptrs, *shape), "nearest_neighbors")
     else:
-        cuda_build.check(lib.mola_knn_launch(*args, k, *shape), "knn")
+        cuda_build.check(lib.mola_knn_launch(*ptrs, k, *shape), "knn")
 
 
 def knn(src, src_mask, tgt, tgt_mask, k: int) -> NNResult:
-    """Exact k-NN, ``idx i32[N,k]`` / ``dist f32[N,k]`` ascending (the
-    ``pallas_knn`` contract; see ``ops/matching.py``)."""
+    """Exact k-NN, ``idx i32[..., N, k]`` / ``dist f32[..., N, k]``
+    ascending (the ``pallas_knn`` contract; see ``ops/matching.py``)."""
     global launches
     if src.device.type == "cpu":
         return knn_plain(src, src_mask, tgt, tgt_mask, k)
@@ -183,13 +201,13 @@ def knn(src, src_mask, tgt, tgt_mask, k: int) -> NNResult:
         raise ValueError(f"knn: unsupported device {src.device}")
     if k not in SUPPORTED_K:
         raise ValueError(f"knn kernel supports k in {SUPPORTED_K}, got {k}")
-    check_inputs(src, src_mask, tgt, tgt_mask)
-    n, m = src.shape[0], tgt.shape[0]
-    dist = torch.empty((n, k), dtype=torch.float32, device=src.device)
-    idx = torch.empty((n, k), dtype=torch.int32, device=src.device)
+    batch = check_inputs(src, src_mask, tgt, tgt_mask)
+    n, m = src.shape[-2], tgt.shape[-2]
+    dist = torch.empty((*src.shape[:-1], k), dtype=torch.float32, device=src.device)
+    idx = torch.empty((*src.shape[:-1], k), dtype=torch.int32, device=src.device)
     if n == 0:
         return NNResult(idx, dist)
     launch(src, src_mask, tgt, tgt_mask, k, cached_plan(src.device, n, m, k), dist, idx)
     launches += 1
-    launches_by_shape[(n, m, k)] += 1
+    launches_by_shape[(batch, n, m, k)] += 1
     return NNResult(idx, dist)

@@ -15,7 +15,9 @@ neighbors``), which is also ``matching.knn``'s up to f32 round-off:
 * the k results are the k smallest (d2, index) pairs, ascending: equal
   distances keep the lower target index.
 
-The distance matrix is materialised one source chunk at a time.
+The distance matrix is materialised one source chunk at a time. A batch
+(``src [B,N,3]``, ``tgt [B,M,3]``, either possibly a stride-0 expand of one
+cloud) is B separate searches, one lane at a time.
 """
 
 from __future__ import annotations
@@ -59,9 +61,18 @@ def _finish(d2, idx, src_mask, m) -> NNResult:
     return NNResult(idx.to(torch.int32), torch.sqrt(d2))
 
 
+def _per_lane(fn, src, src_mask, tgt, tgt_mask, *rest) -> NNResult:
+    outs = [fn(src[b], src_mask[b], tgt[b], tgt_mask[b], *rest) for b in range(src.shape[0])]
+    if not outs:
+        raise ValueError("empty batch")
+    return NNResult(torch.stack([o.idx for o in outs]), torch.stack([o.dist for o in outs]))
+
+
 def knn(src, src_mask, tgt, tgt_mask, k: int) -> NNResult:
-    """k-NN of each source point: ``idx i32[N,k]``, ``dist f32[N,k]``
-    ascending (the K1 contract)."""
+    """k-NN of each source point: ``idx i32[..., N, k]``, ``dist
+    f32[..., N, k]`` ascending (the K1 contract)."""
+    if src.dim() == 3:
+        return _per_lane(knn, src, src_mask, tgt, tgt_mask, k)
     s, t = _prepare(src, src_mask, tgt, tgt_mask)
     n, m = s.shape[0], t.shape[0]
     chunk = max(1, _CHUNK_ELEMS // max(m, 1))
@@ -86,8 +97,10 @@ def knn(src, src_mask, tgt, tgt_mask, k: int) -> NNResult:
 
 
 def nearest_neighbors(src, src_mask, tgt, tgt_mask) -> NNResult:
-    """1-NN of each source point: ``idx i32[N]``, ``dist f32[N]`` (the K2
-    contract)."""
+    """1-NN of each source point: ``idx i32[..., N]``, ``dist f32[..., N]``
+    (the K2 contract)."""
+    if src.dim() == 3:
+        return _per_lane(nearest_neighbors, src, src_mask, tgt, tgt_mask)
     s, t = _prepare(src, src_mask, tgt, tgt_mask)
     n, m = s.shape[0], t.shape[0]
     chunk = max(1, _CHUNK_ELEMS // max(m, 1))

@@ -21,26 +21,28 @@ from .knn_kernel import cached_plan, check_inputs, launch
 from .matching import NNResult, nearest_neighbors as nearest_neighbors_plain
 
 #: launches of the CUDA kernel through :func:`nearest_neighbors` (plain-twin
-#: calls on the CPU do not count), in all and per ``(n, m, 1)``
+#: calls on the CPU do not count), in all and per ``(B, n, m, 1)`` (B = 1
+#: unbatched)
 launches = 0
 launches_by_shape: Counter = Counter()
 
 
 def nearest_neighbors(src, src_mask, tgt, tgt_mask) -> NNResult:
-    """Exact 1-NN, ``idx i32[N]`` / ``dist f32[N]`` (the
-    ``pallas_nearest_neighbors`` contract; see ``ops/matching.py``)."""
+    """Exact 1-NN, ``idx i32[..., N]`` / ``dist f32[..., N]`` (the
+    ``pallas_nearest_neighbors`` contract; see ``ops/matching.py``); a
+    batch as in ``knn_kernel``."""
     global launches
     if src.device.type == "cpu":
         return nearest_neighbors_plain(src, src_mask, tgt, tgt_mask)
     if src.device.type != "cuda":
         raise ValueError(f"nearest_neighbors: unsupported device {src.device}")
-    check_inputs(src, src_mask, tgt, tgt_mask)
-    n, m = src.shape[0], tgt.shape[0]
-    dist = torch.empty((n,), dtype=torch.float32, device=src.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=src.device)
+    batch = check_inputs(src, src_mask, tgt, tgt_mask)
+    n, m = src.shape[-2], tgt.shape[-2]
+    dist = torch.empty(src.shape[:-1], dtype=torch.float32, device=src.device)
+    idx = torch.empty(src.shape[:-1], dtype=torch.int32, device=src.device)
     if n == 0:
         return NNResult(idx, dist)
     launch(src, src_mask, tgt, tgt_mask, 1, cached_plan(src.device, n, m, 1), dist, idx)
     launches += 1
-    launches_by_shape[(n, m, 1)] += 1
+    launches_by_shape[(batch, n, m, 1)] += 1
     return NNResult(idx, dist)

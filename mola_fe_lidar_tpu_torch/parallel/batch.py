@@ -1,0 +1,80 @@
+"""Batched ICP alignment (port of ``mola_fe_lidar_tpu/parallel/batch.py``).
+
+The reference ``vmap``s ``align`` over scan pairs and over loop-closure
+Monte-Carlo guesses. Here a batch is ``models.icp.align`` with a leading
+lane axis: every nearest-neighbour search of an iteration is one K1/K2
+launch for all lanes, and each lane freezes once it has converged. Layers
+given as one cloud are shared by every lane without a copy.
+
+Multi-device sharding of the batch (the reference's ``mesh`` argument) is
+not ported: ROADMAP Queue 1 item 16.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..cloud.metric_map import MetricMap
+from ..geometry import se3
+from ..models.config import ICPParams
+from ..models.icp import ICPResult, align
+
+
+def batched_align(src_maps: MetricMap, tgt_maps: MetricMap, init_poses: se3.Pose,
+                  params: ICPParams, mesh: Optional[object] = None) -> ICPResult:
+    """Align lane b of ``src_maps`` onto lane b of ``tgt_maps`` from
+    ``init_poses[b]``; layers ``[N,3]`` are shared, ``[B,N,3]`` per lane."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a device mesh for the batch axis is not ported (ROADMAP Queue 1 item 16)")
+    return align(src_maps, tgt_maps, init_poses, params)
+
+
+def make_chunked_batched_align(params: ICPParams, chunk: int = 16):
+    """Batched align over consecutive chunks of ``chunk`` lanes, so that a
+    straggler holds up only its own chunk (the reference's ``lax.scan``
+    over vmapped chunks). The batch must divide by ``chunk``."""
+
+    def run(src_maps: MetricMap, tgt_maps: MetricMap, init_poses: se3.Pose) -> ICPResult:
+        b = init_poses.t.shape[0]
+        if b % chunk:
+            raise ValueError(f"batch {b} not divisible by chunk {chunk}")
+
+        def part(mm, lo):
+            return {n: pc if pc.xyz.dim() == 2 else type(pc)(
+                pc.xyz[lo:lo + chunk], pc.mask[lo:lo + chunk],
+                {k: v[lo:lo + chunk] for k, v in pc.attrs.items()}) for n, pc in mm.items()}
+
+        outs = [align(part(src_maps, lo), part(tgt_maps, lo),
+                      se3.Pose(init_poses.R[lo:lo + chunk], init_poses.t[lo:lo + chunk]),
+                      params)
+                for lo in range(0, b, chunk)]
+        cat = lambda xs: torch.cat(xs, dim=0)
+        return ICPResult(se3.Pose(cat([o.pose.R for o in outs]), cat([o.pose.t for o in outs])),
+                         *(cat([getattr(o, f) for o in outs])
+                           for f in ("cov", "quality", "n_iterations", "term_reason")))
+
+    return run
+
+
+def monte_carlo_guesses(generator: torch.Generator, center: se3.Pose, n_samples: int,
+                        sigma_xyz: float, sigma_rot: float,
+                        full_rotation: bool = False) -> se3.Pose:
+    """``n_samples`` Gaussian perturbations of ``center`` (the loop-closure
+    Monte-Carlo guesses): translation noise of ``sigma_xyz`` on every axis
+    and yaw noise of ``sigma_rot`` (all three rotation axes with
+    ``full_rotation``), drawn from ``generator`` on the CPU. The reference
+    draws from ``jax.random``, whose numbers torch cannot reproduce: tests
+    inject the same guesses into both packages."""
+    dxyz = sigma_xyz * torch.randn((n_samples, 3), generator=generator)
+    if full_rotation:
+        drot = sigma_rot * torch.randn((n_samples, 3), generator=generator)
+    else:
+        yaw = sigma_rot * torch.randn((n_samples, 1), generator=generator)
+        drot = torch.cat([torch.zeros((n_samples, 2)), yaw], dim=-1)
+    tau = torch.cat([dxyz, drot], dim=-1).to(center.t.device, center.t.dtype)
+    perturb = se3.exp(tau)
+    return se3.compose(perturb, se3.Pose(center.R.expand(n_samples, 3, 3),
+                                         center.t.expand(n_samples, 3)))

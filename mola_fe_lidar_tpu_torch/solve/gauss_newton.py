@@ -4,7 +4,9 @@
 Residual per pairing r_i = n_iᵀ (R p_i + t − q_i); Jacobian in the tangent
 δ = [δt, δw] at the current pose J_i = [nᵀ, ((R p_i) × n_i)ᵀ]; normal
 equations A δ = b with A = Σ w J Jᵀ, b = −Σ w J r; a left-multiplied exp
-update. The inner loop re-linearizes at fixed correspondences. The 6x6
+update. The inner loop re-linearizes at fixed correspondences. Every
+function takes leading batch dimensions (one system per lane of a batched
+align, ``models/icp.py``); the prior weights are shared. The 6x6
 solves use ``torch.linalg.solve_ex`` / ``inv_ex``, which do not wait for
 the device to report singularity, so the inner loop never stalls the host.
 """

@@ -18,13 +18,13 @@ import pytest
 import torch
 
 from mola_fe_lidar_tpu.cloud.metric_map import PointCloud as JPointCloud
-from mola_fe_lidar_tpu.filters.generators import apply_generators
 from mola_fe_lidar_tpu.geometry import se3 as jse3
 from mola_fe_lidar_tpu.models import icp as jicp
 from mola_fe_lidar_tpu.models.config import AlignKind as JAlignKind
 from mola_fe_lidar_tpu.obs.hdl64 import hdl64_sequence
 from mola_fe_lidar_tpu.frontend.odometry import LidarOdometry as JLidarOdometry
-from mola_fe_lidar_tpu_torch.cloud.metric_map import from_numpy_layers
+from mola_fe_lidar_tpu_torch.cloud.metric_map import from_numpy_layers, to_numpy_layers
+from mola_fe_lidar_tpu_torch.filters.generators import apply_generators
 from mola_fe_lidar_tpu_torch.geometry import se3
 from mola_fe_lidar_tpu_torch.models import icp
 from mola_fe_lidar_tpu_torch.models.config import AlignKind
@@ -36,8 +36,9 @@ AZIMUTH = 512
 
 @pytest.fixture(scope="module")
 def setup():
-    """Filtered layers of scans 0 and 2 (numpy, from the reference filter
-    chain) and both modules' stage parameters."""
+    """Filtered layers of scans 0 and 2 (numpy, from the port's filter
+    chain, which tests/test_torch_filters.py holds to the reference's) and
+    both modules' stage parameters."""
     cfg = realtime_config(scale=AZIMUTH / 2048)
     port = build_module(cfg, device="cpu")
     ref = JLidarOdometry()
@@ -45,10 +46,8 @@ def setup():
     obs, gt = hdl64_sequence(n_scans=3, n_azimuth=AZIMUTH)
     layers = []
     for o in (obs[0], obs[2]):
-        mm = ref.filter_pipeline(apply_generators(ref.generators, o))
-        layers.append({name: {"xyz": np.asarray(pc.xyz), "mask": np.asarray(pc.mask),
-                              "attrs": {k: np.asarray(v) for k, v in pc.attrs.items()}}
-                       for name, pc in mm.items() if name != "raw"})
+        mm = port._filter_core(apply_generators(port.generators, o), torch.zeros(6))[0]
+        layers.append({name: e for name, e in to_numpy_layers(mm).items() if name != "raw"})
     # ground-truth relative motion 0 -> 2 as the guess, perturbed
     (R0, p0), (R2, p2) = gt[0], gt[2]
     rel_R = R0.T @ R2

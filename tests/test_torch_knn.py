@@ -292,9 +292,10 @@ def test_entry_points_default_to_the_card():
     from mola_fe_lidar_tpu_torch.cloud import metric_map
     from mola_fe_lidar_tpu_torch.filters import generators
     from mola_fe_lidar_tpu_torch.frontend.odometry import LidarOdometry
+    from mola_fe_lidar_tpu_torch.frontend.worldmodel import WorldModel
     from mola_fe_lidar_tpu_torch.obs import runner
 
-    for fn in (LidarOdometry.__init__, runner.build_module, runner.run_replay,
+    for fn in (LidarOdometry.__init__, WorldModel.__init__, runner.build_module, runner.run_replay,
                generators.GeneratorRawPoints.__init__, generators.generators_from_config,
                metric_map.from_points, metric_map.from_numpy_layers,
                metric_map.load_metric_map):

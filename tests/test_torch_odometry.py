@@ -9,6 +9,15 @@ At 1/8 of the sensor's azimuth resolution the paired-ratio goodness sits
 near 0.3, so both packages run with ``min_icp_goodness: 0.25``; at the
 preset's 0.5 every map align would fall back to scan-to-scan and no second
 keyframe would be made.
+
+The replay runs the preset's nearby-keyframe / loop-closure window, with
+test-only overrides (``REPLAY_OVERRIDES``) that make both kinds of check
+happen within 14 scans. Accepted non-adjacent edges must be the same set
+with poses within 5 mm / 1 mrad. What makes the runs comparable: both
+packages take the same Monte-Carlo guesses (made here with numpy; torch
+cannot reproduce ``jax.random``), and each module finishes every scan and
+every check it started before the next scan is fed, with one pool worker,
+so which checks run and which edges they see does not depend on timing.
 """
 
 import importlib.util
@@ -30,6 +39,22 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 AZIMUTH = 256
 SCANS = 8
+# test-only: keyframes every ~2 scans and a window from 2.5 m, so that
+# nearby checks (2 keyframes apart) and a loop-closure check (3 apart) run
+# within 8 scans; two nearby lanes, four Monte-Carlo lanes of at most 25
+# iterations, and a loop-closure gate that the low-resolution goodness can
+# pass
+REPLAY_OVERRIDES = (
+    "min_icp_goodness=0.25",
+    "min_dist_xyz_between_keyframes=1.5",
+    "min_dist_to_matching=2.5",
+    "min_topo_dist_to_consider_loopclosure=3",
+    "max_nearby_align_checks=2",
+    "loop_closure_montecarlo_samples=4",
+    "icp_settings_loop_closure.params.maxIterations=25",
+    "min_icp_goodness_lc=0.3",
+    "min_icp_goodness_lc_auto=false",
+)
 
 
 def _run_accuracy():
@@ -63,23 +88,94 @@ def test_simulator_copy_is_the_reference():
         np.testing.assert_array_equal(t, tj)
 
 
-def test_replay_matches_reference():
+def _guesses(center_R, center_t, n):
+    """The Monte-Carlo guesses both packages take: yaw and translation
+    perturbations of the centre, from a fixed numpy stream."""
+    rng = np.random.default_rng(11)
+    yaw = rng.normal(0, 0.02, n)
+    c, s = np.cos(yaw), np.sin(yaw)
+    Rz = np.zeros((n, 3, 3))
+    Rz[:, 0, 0], Rz[:, 0, 1], Rz[:, 1, 0], Rz[:, 1, 1], Rz[:, 2, 2] = c, -s, s, c, 1.0
+    R = Rz @ np.asarray(center_R, np.float64)
+    t = Rz @ np.asarray(center_t, np.float64) + rng.normal(0, 0.25, (n, 3))
+    return R.astype(np.float32), t.astype(np.float32)
+
+
+def _serial(monkeypatch, cls):
+    """Each scan and the checks it starts finish before the next scan is
+    fed, on one pool worker."""
+    feed = cls.on_new_observation
+
+    def serial_feed(self, obs):
+        if self._nearby_pool._max_workers != 1:
+            self._nearby_pool.shutdown()
+            self._nearby_pool = ThreadPoolExecutor(1)
+        fut = feed(self, obs)
+        self.drain()
+        return fut
+
+    monkeypatch.setattr(cls, "on_new_observation", serial_feed)
+
+
+def _non_adjacent(module):
+    st = module.state
+    return {(a, b): (R, t) for a, b, R, t in st.edge_log
+            if (min(a, b), max(a, b)) in st.checked_KF_pairs}
+
+
+def test_replay_matches_reference(monkeypatch):
+    import jax.numpy as jnp
+    from mola_fe_lidar_tpu.frontend import odometry as jodometry
+    from mola_fe_lidar_tpu.geometry import se3 as jse3
+    from mola_fe_lidar_tpu_torch.frontend import odometry
+    from mola_fe_lidar_tpu_torch.geometry import se3
+
+    def port_guesses(gen, center, n, sigma_xyz, sigma_rot):
+        R, t = _guesses(center.R.cpu().numpy(), center.t.cpu().numpy(), n)
+        return se3.Pose(torch.from_numpy(R), torch.from_numpy(t))
+
+    def ref_guesses(key, center, n, sigma_xyz, sigma_rot):
+        R, t = _guesses(np.asarray(center.R), np.asarray(center.t), n)
+        return jse3.Pose(jnp.asarray(R), jnp.asarray(t))
+
+    monkeypatch.setattr(odometry, "monte_carlo_guesses", port_guesses)
+    monkeypatch.setattr(jodometry, "monte_carlo_guesses", ref_guesses)
+    _serial(monkeypatch, odometry.LidarOdometry)
+    _serial(monkeypatch, jodometry.LidarOdometry)
     obs, gt = hdl64.hdl64_sequence(n_scans=SCANS, n_azimuth=AZIMUTH)
-    cfg = runner.realtime_config(AZIMUTH / 2048)
-    cfg["params"]["min_icp_goodness"] = 0.25
+    cfg = runner.build_config(scale=AZIMUTH / 2048, overrides=(
+        runner.REALTIME + runner.SLICE + REPLAY_OVERRIDES))
+    assert cfg == _reference_config(AZIMUTH / 2048, REPLAY_OVERRIDES)
     # the reference spends most of its run compiling; replay both at once
     # (precompile_rare_paths only schedules more reference compiles)
     with ThreadPoolExecutor(1) as pool:
         ref_future = pool.submit(jrunner.run_replay, obs, _reference_config(
-            AZIMUTH / 2048, ("min_icp_goodness=0.25", "precompile_rare_paths=false")),
+            AZIMUTH / 2048, REPLAY_OVERRIDES + ("precompile_rare_paths=false",)),
             gt_poses=gt)
         res = runner.run_replay(obs, cfg, gt_poses=gt, device="cpu")
         ref = ref_future.result()
     try:
         assert res["jobs_abandoned"] == 0 and ref["jobs_abandoned"] == 0
-        assert res["n_keyframes"] == ref["n_keyframes"] >= 2
+        assert res["n_keyframes"] == ref["n_keyframes"] >= 4
         assert res["n_factors"] == ref["n_factors"]
         stats = res["module"].profiler.stats()
+        ref_stats = ref["module"].profiler.stats()
+        # both kinds of check ran, the same number of times in both
+        for kind in ("nearby", "lc"):
+            key = f"counter:checkNonAdjacent.{kind}.accepted"
+            assert stats[key]["count"] >= 1
+            assert stats[key]["count"] == ref_stats[key]["count"]
+            assert stats[key]["total"] == ref_stats[key]["total"]
+        assert stats["checkNonAdjacent.nearby_batch_align"]["count"] >= 1
+        edges, ref_edges = _non_adjacent(res["module"]), _non_adjacent(ref["module"])
+        assert set(edges) == set(ref_edges)
+        assert res["n_nearby_edges"] + res["n_loop_closures"] == len(edges)
+        assert res["n_loop_closures"] == len(ref["module"].state.lc_pairs)
+        for pair, (R, t) in edges.items():
+            Rj, tj = ref_edges[pair]
+            assert np.linalg.norm(t - tj) < 5e-3
+            dR = R.T @ Rj
+            assert np.linalg.norm(dR - dR.T) / (2 * np.sqrt(2)) < 1e-3  # sin of the angle
         # the map path ran: some map aligns were accepted, not all fell back
         assert stats["counter:icp_latest.goodness"]["count"] == SCANS - 1
         assert stats.get("counter:doProcess.map_align_weak", {"total": 0})["total"] < SCANS - 2
@@ -148,8 +244,6 @@ def test_port_runs_with_jax_and_the_reference_blocked():
     "pipelined_scan_step=true",
     "fused_scan_step=false",
     "deskew_in_loop=true",
-    "max_dist_to_matching=20.0",
-    "max_dist_to_loop_closure=30.0",
     "local_map_build_mode=sort",
     "local_map_async_build=true",
     "local_map_min_views=2",
