@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port (``mola_fe_lidar_tpu_torch``) once on one GPU.
 
-    python3 chip_smoke.py    # build kernels, check them, replay 30 scans twice
+    python3 chip_smoke.py    # build kernels, check them, replay, align scan pairs
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -29,7 +29,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    back (``min_topo_dist_to_consider_loopclosure=3``), so that full-width
    Monte-Carlo batches (10 lanes against a +-3-keyframe submap) run, with
    the counts reset and read around it; check that loop-closure checks ran;
-6. hold every batched shape those replays launched (``launches_by_shape``
+6. the pairwise-registration path (:func:`pairwise`): the reference
+   runner's quickstart configuration (``DEFAULT_CFG``: voxel downsample,
+   point-to-point Horn, kNN = 6 point-to-plane) replayed over 40 synthetic
+   circle scans of 8192 points, with an ATE bound; bench.py's 64 scan pairs
+   of 2048 points as one batch through coarse-to-fine with kNN normals,
+   ``icp_settings_regular`` (kNN = 6 with the scale-outlier gate),
+   point-to-point Horn and robust Cauchy on pairs with 20 % outliers, each
+   with pairs/s, the accepted share and the largest accepted pose error
+   against bounds; one GICP align of two 8192-point clouds (K1 at k = 10
+   for the covariances), with a pose-error bound;
+7. hold every batched shape those phases launched (``launches_by_shape``
    keys with B > 1) bit for bit against the twin and against B unbatched
    launches, once with every operand per lane and once with the target and
    the source mask shared by all lanes (stride-0 expands), and time it as
@@ -58,6 +68,22 @@ FLOP_PER_PAIR = 8
 F32_PEAK_FLOPS = 67e12
 N_SCANS = 30  # full-resolution HDL-64 scans in each replay
 LC_TOPO = 3  # keyframes back from which the loop-closure phase looks
+# the pairwise-registration phase: the reference runner's quickstart replay
+# (DEFAULT_CFG, synthetic circle, 8192-point scans), bench.py's 64 scan
+# pairs of 2048 points (seed 7) as one batch, one GICP align of 8192 points
+QUICK_SCANS = 40
+PAIRS, PAIR_CAP, PAIR_SEED = 64, 2048, 7
+PAIR_REPS = 2  # timed batches a configuration, after one warm-up
+GICP_POINTS = 8192
+# Bounds, several times what an NVIDIA H100 80GB HBM3 (700 W) measured
+# (PERF.md), to catch breakage: the quickstart's scan ATE (0.034 m),
+# each pair configuration's (least accepted share, largest accepted pose
+# error in m) -- accepted 1.0 / 1.0 / 1.0 / 0.984 with 1e-5, 0.0084,
+# 0.028 and 0.033 m -- and the GICP pose error (2e-6 m)
+QUICK_ATE_BOUND_M = 0.2
+PAIR_BOUNDS = {"c2f": (0.9, 0.001), "regular": (0.9, 0.05), "horn": (0.9, 0.15),
+               "robust": (0.9, 0.15)}
+GICP_ERR_BOUND_M = 0.001
 
 
 def fail(msg: str) -> int:
@@ -233,6 +259,8 @@ def check_kernels(device):
         ("nn", 1, 1024, 32768, "paired-ratio quality"),
         ("nn", 1, 8192, 32768, "point-to-plane pairing for the covariance"),
         ("nn", 1, 8192, 8192, "scan-to-scan point-to-plane"),
+        ("knn", 6, 8192, 8192, "point2plane_knn pairing (quickstart replay)"),
+        ("knn", 10, 8192, 8192, "GICP covariances (self-kNN)"),
     ]
     per_kernel = {"knn": [], "nn": []}
     for kind, k, n, m, what in main_shapes:
@@ -344,7 +372,7 @@ def _span(stats, key):
     return (s["count"], s["mean_s"] * 1e3, s["total_s"]) if s else (0, 0.0, 0.0)
 
 
-def run_phase(device, obs, gt, cfg, label):
+def run_phase(device, obs, gt, cfg, label, ate_bound=ATE_BOUND_M):
     """One replay of ``obs`` on ``device`` with the counts reset just before
     and read just after. Returns (result, counts, counts per shape, stats)."""
     import numpy as np
@@ -367,7 +395,7 @@ def run_phase(device, obs, gt, cfg, label):
               f"{res['n_factors']} factors ({res['n_nearby_edges']} nearby edges, "
               f"{res['n_loop_closures']} loop closures), jobs_abandoned={res['jobs_abandoned']}, "
               f"wall {res['wall_s']:.2f} s, peak device memory {peak_mib:.1f} MiB")
-        print(f"  scan ATE {ate} m (bound {ATE_BOUND_M} m), steady {sps} scans/s"
+        print(f"  scan ATE {ate} m (bound {ate_bound} m), steady {sps} scans/s"
               + (f" = {1e3 / sps:.1f} ms/scan" if sps else ""))
         stats = module.profiler.stats()
         _, _, scan_total = _span(stats, "doProcessNewObservation")
@@ -387,13 +415,14 @@ def run_phase(device, obs, gt, cfg, label):
         print(f"  launch counts: {counts}")
         for name, shapes in by_shape.items():
             for (b, n, m, k), c in sorted(shapes.items()):
-                print(f"    {name} B={b} {n}x{m} k={k}: {c} launches, {c / N_SCANS:.3f} per scan")
+                print(f"    {name} B={b} {n}x{m} k={k}: {c} launches, "
+                      f"{c / res['n_scans']:.3f} per scan")
         if res["jobs_abandoned"] != 0:
             raise AssertionError("jobs abandoned")
         if res["n_keyframes"] < 3:
             raise AssertionError(f"only {res['n_keyframes']} keyframes")
-        if ate is None or not np.isfinite(ate) or ate > ATE_BOUND_M:
-            raise AssertionError(f"scan ATE {ate} outside the bound {ATE_BOUND_M} m")
+        if ate is None or not np.isfinite(ate) or ate > ate_bound:
+            raise AssertionError(f"scan ATE {ate} outside the bound {ate_bound} m")
         for name, c in counts.items():
             if c <= 0:
                 raise AssertionError(f"kernel {name} was not launched by the {label}")
@@ -430,15 +459,161 @@ def loop_closure(device, obs, gt):
     return counts, by_shape
 
 
+def _timed_batches(fn, reps: int):
+    """(result, median seconds, launches per call by shape): one warm-up
+    call, then ``reps`` calls, each ended by a read of the result to the
+    host, with the counts reset after the warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    _reset_counts()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = fn()
+        res.quality.cpu()
+        times.append(time.perf_counter() - t0)
+    counts, by_shape = _read_counts()
+    return res, sorted(times)[reps // 2], counts, by_shape
+
+
+def pairwise(device):
+    """Phase 6: the pairwise-registration path. The reference runner's
+    quickstart (``DEFAULT_CFG``: 0.7 m voxel downsample, point-to-point
+    Horn, then kNN = 6 point-to-plane, which launches K1 at k = 6 every
+    iteration) replayed over QUICK_SCANS synthetic circle scans; bench.py's
+    PAIRS scan pairs through four configurations, each one batch of PAIRS
+    lanes; one GICP align of two GICP_POINTS-point clouds (K1 at k = 10).
+    Counts are reset just before and read just after each run. Returns
+    {(kernel, (B, n, m, k)): (launches, runs, unit)}."""
+    import math
+
+    import numpy as np
+    import torch
+    from mola_fe_lidar_tpu_torch.cloud.metric_map import from_points
+    from mola_fe_lidar_tpu_torch.filters.pipeline import (FilterGICPCovariances,
+                                                          _attach_normals_knn)
+    from mola_fe_lidar_tpu_torch.geometry import se3
+    from mola_fe_lidar_tpu_torch.models import (ICPParams, Matcher, PairWeights, Quality, Solver,
+                                                align, align_pipeline, icp_coarse_to_fine,
+                                                icp_settings_regular)
+    from mola_fe_lidar_tpu_torch.obs.runner import default_config
+    from mola_fe_lidar_tpu_torch.obs.scan_pairs import (make_pairs, make_world, pair_clouds,
+                                                        pose_errors, stack_pairs)
+    from mola_fe_lidar_tpu_torch.obs.synthetic import synthetic_sequence
+
+    shapes = {}
+
+    def record(by_shape, runs, unit):
+        for name, per_shape in by_shape.items():
+            for key, c in per_shape.items():
+                shapes.setdefault((name, key), (c, runs, unit))
+
+    t0 = time.perf_counter()
+    obs, gt = synthetic_sequence(kind="circle", n_scans=QUICK_SCANS,
+                                 loop_side=QUICK_SCANS / math.pi)
+    print(f"simulated {QUICK_SCANS} synthetic circle scans ({len(obs[0]['xyz'])} points each) "
+          f"in {time.perf_counter() - t0:.1f} s")
+    _, _, by_shape, _ = run_phase(device, obs, gt, default_config(),
+                                  "quickstart replay (DEFAULT_CFG)", ate_bound=QUICK_ATE_BOUND_M)
+    record(by_shape, QUICK_SCANS, "scan (quickstart)")
+
+    rng = np.random.default_rng(PAIR_SEED)
+    pairs = make_pairs(rng, PAIRS, PAIR_CAP)
+    src, tgt, taus = stack_pairs(pairs, PAIR_CAP, device=device)
+    # bench.py's outlier pairs: 20 % of each target replaced by an off-pose
+    # cluster that the source lacks
+    orng = np.random.default_rng(PAIR_SEED + 1)
+    out_pairs = []
+    for world, tau in pairs:
+        w = world.copy()
+        k = len(w) // 5
+        c = orng.uniform(-20, 20, 3).astype(np.float32)
+        c[2] = 1.0
+        w[-k:] = c + orng.normal(0, 1.0, (k, 3)).astype(np.float32)
+        out_pairs.append(((world, w), tau))
+    src_o, tgt_o, _ = stack_pairs(out_pairs, PAIR_CAP, device=device)
+    eye = se3.Pose(torch.eye(3, device=device).expand(PAIRS, 3, 3).contiguous(),
+                   torch.zeros(PAIRS, 3, device=device))
+    p2p = ICPParams(max_iterations=40,
+                    matchers=(Matcher(kind="point2point", distance_threshold=2.0),),
+                    solver=Solver(kind="horn"),
+                    weights=PairWeights(use_scale_outlier_detector=False))
+    robust = ICPParams(
+        max_iterations=40,
+        matchers=(Matcher(kind="point2plane_knn", distance_threshold=1.0, knn=6,
+                          plane_eigen_threshold=0.2),),
+        solver=Solver(kind="gauss_newton", max_iterations=10),
+        quality=(Quality(threshold_distance=0.3),),
+        weights=PairWeights(use_scale_outlier_detector=False, use_robust_kernel=True,
+                            robust_kernel="cauchy", robust_kernel_param=0.2))
+
+    def c2f():
+        tgt_n = {"raw": _attach_normals_knn(tgt["raw"].xyz, tgt["raw"].mask, 8)}
+        return align_pipeline(src, tgt_n, eye, icp_coarse_to_fine())
+
+    runs = (("c2f", "coarse-to-fine with kNN normals", c2f),
+            ("regular", "kNN = 6 point-to-plane, icp_settings_regular",
+             lambda: align(src, tgt, eye, icp_settings_regular())),
+            ("horn", "point-to-point Horn", lambda: align(src, tgt, eye, p2p)),
+            ("robust", "robust Cauchy point-to-plane, 20 % outliers",
+             lambda: align(src_o, tgt_o, eye, robust)))
+    for key, label, fn in runs:
+        res, sec, counts, by_shape = _timed_batches(fn, PAIR_REPS)
+        errs = pose_errors(res.pose, taus)
+        acc = res.quality.cpu().numpy() > 0.5
+        worst = float(errs[acc].max()) if acc.any() else float("inf")
+        n_it = res.n_iterations.cpu().numpy()
+        print(f"pairs, {label}: {PAIRS / sec:.1f} pairs/s ({1e3 * sec:.1f} ms a batch of "
+              f"{PAIRS}), accepted {acc.mean():.3f}, largest accepted error {worst:.5f} m, "
+              f"mean error {errs.mean():.5f} m, iterations {n_it.min()}-{n_it.max()}, "
+              f"launches a batch {({k: v / PAIR_REPS for k, v in counts.items()})}")
+        record(by_shape, PAIR_REPS, f"batch ({key})")
+        least, largest = PAIR_BOUNDS[key]
+        if acc.mean() < least or worst > largest:
+            raise AssertionError(f"{label}: accepted {acc.mean():.3f} (bound {least}), largest "
+                                 f"accepted error {worst} m (bound {largest} m)")
+
+    grng = np.random.default_rng(PAIR_SEED + 2)
+    world = make_world(grng, GICP_POINTS)
+    tau = grng.normal(0, 0.08, 6).astype(np.float32)
+    (s_np,), (t_np,), _ = pair_clouds([(world, tau)])
+    gicp = ICPParams(max_iterations=30,
+                     matchers=(Matcher(kind="gicp", distance_threshold=1.0),),
+                     solver=Solver(kind="gauss_newton", max_iterations=10),
+                     weights=PairWeights(use_scale_outlier_detector=False))
+
+    def gicp_align():
+        covs = FilterGICPCovariances()
+        s_map = covs({"raw": from_points(s_np, capacity=GICP_POINTS, device=device)})
+        t_map = covs({"raw": from_points(t_np, capacity=GICP_POINTS, device=device)})
+        return align(s_map, t_map, se3.Pose(torch.eye(3, device=device),
+                                            torch.zeros(3, device=device)), gicp)
+
+    res, sec, counts, by_shape = _timed_batches(gicp_align, PAIR_REPS)
+    err = float(pose_errors(se3.Pose(res.pose.R[None], res.pose.t[None]), [tau])[0])
+    print(f"GICP {GICP_POINTS} points (covariances + align): {1e3 * sec:.1f} ms, error "
+          f"{err:.6f} m (bound {GICP_ERR_BOUND_M} m), {int(res.n_iterations)} iterations, "
+          f"quality {float(res.quality):.4f}, launches {counts}")
+    record(by_shape, PAIR_REPS, "align (GICP)")
+    if not err <= GICP_ERR_BOUND_M:
+        raise AssertionError(f"GICP error {err} m outside the bound {GICP_ERR_BOUND_M} m")
+    for name in ("knn", "nearest_neighbors"):
+        if not any(n == name for n, _ in shapes):
+            raise AssertionError(f"kernel {name} was not launched by the pairwise phase")
+    return shapes
+
+
 def check_batched(device, shape_counts):
-    """Phase 6: every batched shape the replays launched. ``shape_counts``:
-    {(kernel name, (B, n, m, k)): launches}. Returns the rows per kernel."""
+    """Phase 7: every batched shape the replays and the pairwise phase
+    launched. ``shape_counts``: {(kernel name, (B, n, m, k)): (launches,
+    scans or batches, unit)}. Returns the rows per kernel."""
     import torch
     from mola_fe_lidar_tpu_torch.ops import knn_kernel, matching, nn_kernel
 
     gen = torch.Generator().manual_seed(2)
     rows = {"knn": [], "nearest_neighbors": []}
-    for (name, (b, n, m, k)), launched in sorted(shape_counts.items()):
+    for (name, (b, n, m, k)), (launched, per, unit) in sorted(shape_counts.items()):
         if b == 1:
             continue
         lanes = [make_cloud(gen, n, 0.95, device) for _ in range(b)]
@@ -483,14 +658,14 @@ def check_batched(device, shape_counts):
                "bound_ms": b * n * m * FLOP_PER_PAIR / F32_PEAK_FLOPS * 1e3,
                "library_ms": cuda_ms(library, reps=5, warmup=1),
                "plain_ms": cuda_ms(lambda: plain(*shared), reps=3, warmup=1),
-               "launches_per_scan": launched / N_SCANS}
+               "launches": launched, "per": unit, "launches_per": launched / per}
         row["bound_share"] = row["bound_ms"] / row["ms"]
         print(f"{name} B={b} k={k} {n}x{m}: bit-identical per lane (own and shared operands, "
               f"twin and {b} unbatched launches); kernel {row['ms']:.4f} ms, graph "
               f"{row['graph_ms']:.4f} ms, host {row['host_us']:.1f} us, bound "
               f"{row['bound_ms']:.4f} ms ({100 * row['bound_share']:.1f} %), library "
               f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"{row['launches_per_scan']:.3f} launches per scan")
+              f"{row['launches_per']:.3f} launches per {unit}")
         rows[name].append(row)
     return rows
 
@@ -530,18 +705,21 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f} s")
     counts, by_shape = replay(device, obs, gt)
     lc_counts, lc_by_shape = loop_closure(device, obs, gt)
-    batched = {}
-    for shapes in (by_shape, lc_by_shape):
+    launched = {}
+    for shapes, unit in ((by_shape, "scan"), (lc_by_shape, "scan (loop-closure phase)")):
         for name, per_shape in shapes.items():
             for key, c in per_shape.items():
-                batched[(name, key)] = max(batched.get((name, key), 0), c)
-    batched_rows = check_batched(device, batched)
+                launched.setdefault((name, key), (c, N_SCANS, unit))
+    for key, val in pairwise(device).items():
+        launched.setdefault(key, val)
+    batched_rows = check_batched(device, launched)
     for row in rows:
         row["launches"] = counts[row["name"]]
         row["launches_lc_phase"] = lc_counts[row["name"]]
         for shape in row["shapes"]:
-            c = by_shape[row["name"]].get((1, shape["n"], shape["m"], shape["k"]), 0)
-            shape["launches_per_scan"] = c / N_SCANS
+            c, per, unit = launched.get(
+                (row["name"], (1, shape["n"], shape["m"], shape["k"])), (0, N_SCANS, "scan"))
+            shape.update(launches=c, per=unit, launches_per=c / per)
         row["shapes"] += batched_rows[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,12 @@
   (x*2^15 + y, z) cells becomes ONE stable sort on the int64 key
   ``(key1 << 15) | key2``; invalid rows carry the int32 maximum in both
   halves, so they still sort last.
-* :func:`voxel_stats_scan`: per-point count / mean / covariance by
-  segmented prefix sums, with the two-pass centered covariance.
+* :func:`voxel_stats`: per-voxel count / mean / covariance tables by
+  segment sums at a static table size (``index_add_``, which adds the rows
+  of a voxel in order, as the reference's ``segment_sum`` does on the
+  CPU), with the two-pass centered covariance.
+* :func:`voxel_stats_scan`: the same statistics per point, by segmented
+  prefix sums.
   :func:`prefix_sum` reproduces the association of the reference's f32
   ``cumsum`` (base-16 blocked scan), so the f32 round-off of the voxel
   statistics is the reference's.
@@ -94,6 +98,45 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     excl = torch.cat([totals.new_zeros((1, *totals.shape[1:])), totals[:-1]])
     out = within + excl[:, None]
     return out.reshape(-1, *x.shape[1:])[:n]
+
+
+class VoxelStats(NamedTuple):
+    """Per-voxel statistics at static capacity S (= num_segments)."""
+    count: torch.Tensor  # f32[S]
+    mean: torch.Tensor   # f32[S,3]
+    cov: torch.Tensor    # f32[S,3,3]
+    valid: torch.Tensor  # f32[S] 1.0 for occupied voxels
+
+
+def voxel_segments(vs: VoxelSort, num_segments: int) -> torch.Tensor:
+    """Segment ids with one trash slot at ``num_segments`` for padding and
+    for voxels past the capacity (i64)."""
+    return torch.clamp(vs.seg_id.to(torch.int64), max=num_segments)
+
+
+def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, total: int) -> torch.Tensor:
+    out = torch.zeros((total, *vals.shape[1:]), dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, seg, vals)
+
+
+def voxel_stats(vs: VoxelSort, num_segments: int) -> VoxelStats:
+    """Count / mean / two-pass centered covariance per voxel, at a static
+    table of ``num_segments`` voxels (one more slot absorbs padding and
+    overflow, and is dropped). The one-pass E[xxᵀ] - μμᵀ would cancel in
+    f32 on absolute LiDAR coordinates."""
+    seg = voxel_segments(vs, num_segments)
+    total = num_segments + 1
+    w = vs.mask
+    count = _segment_sum(w, seg, total)
+    sum_x = _segment_sum(vs.xyz * w[:, None], seg, total)
+    mean_all = sum_x / torch.clamp(count, min=1.0)[:, None]
+    # each residual outer product weighted by w once (w r rᵀ)
+    r = vs.xyz - mean_all[seg]
+    outer = (r * w[:, None])[:, :, None] * r[:, None, :]
+    sum_cc = _segment_sum(outer, seg, total)
+    count, mean = count[:-1], mean_all[:-1]
+    cov = sum_cc[:-1] / torch.clamp(count, min=1.0)[:, None, None]
+    return VoxelStats(count, mean, cov, (count > 0.5).to(vs.xyz.dtype))
 
 
 class PointVoxelStats(NamedTuple):

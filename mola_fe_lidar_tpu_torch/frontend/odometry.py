@@ -20,10 +20,12 @@ and graph edges.
 
 Ported: the fused (non-pipelined) scan step, scan-to-map and scan-to-scan
 odometry, the hash-built ``DeviceLocalMap``, the nearby-keyframe and loop-
-closure search with the keyframe ``WorldModel``. Settings that select
-anything else raise ``NotImplementedError`` from
-:meth:`LidarOdometry.initialize`, naming the ROADMAP item that ports it --
-in particular the pipelined scan step and in-loop deskew.
+closure search with the keyframe ``WorldModel``, every filter, matcher and
+solver of the reference and its built-in ICP presets (``icp_cases_kitti``
+when no ``icp_settings_*`` is configured). Settings that select anything
+else raise ``NotImplementedError`` from :meth:`LidarOdometry.initialize`,
+naming the ROADMAP item that ports it -- in particular the pipelined scan
+step, in-loop deskew, the sort map build and Anderson acceleration.
 
 Threads and streams: the pool's jobs launch their kernels on the same CUDA
 stream as the scan step (each thread's current stream is the device's
@@ -55,6 +57,7 @@ from ..geometry import se3, se3_np
 from ..models.config import AlignKind
 from ..models.icp import (_CAND_KINDS, _CAND_KNN_KINDS, ICPResult, align_pipeline,
                           check_params)
+from ..models.presets import icp_cases_kitti
 from ..parallel.batch import monte_carlo_guesses
 from ..utils.config import DEG2RAD, yaml_get
 from .backend import (AdvertiseLocalization, FactorRelativePose3, HostPose,
@@ -65,10 +68,6 @@ from .module_base import MODULE_REGISTRY, FrontEndBase, RawObservation
 from .pose_graph import PoseGraph, make_pose_graph
 from .worldmodel import (ANNOTATION_NAME_PC_LAYERS, ANNOTATION_NAME_RENDER_DECORATION,
                          WorldModel)
-
-_PORTED_FILTERS = ("FilterDeskew", "FilterEdgesPlanes",
-                   "mola::lidar_segmentation::FilterEdgesPlanes")
-_PORTED_GENERATORS = ("GeneratorRawPoints", "mp2p_icp_filters::Generator")
 
 
 def _pack_icp_result(res: ICPResult) -> torch.Tensor:
@@ -241,8 +240,6 @@ _UNPORTED = (
     ("local_map_min_views", 1, lambda v: int(v) <= 1, "Queue 1 item 9 (host LocalMap)"),
     ("local_map_async_build", False, lambda v: not v,
      "Queue 1 item 9 (asynchronous map rebuild)"),
-    ("decimate_to_point_count", 0, lambda v: not v,
-     "Queue 1 item 12 (FilterDecimateToCount)"),
 )
 
 
@@ -343,9 +340,7 @@ class LidarOdometry(FrontEndBase):
             if c.get(key):
                 self.icp_cases[kind] = icp_stages_from_config(c[key])
         if not self.icp_cases:
-            raise NotImplementedError(
-                "the built-in ICP presets are not ported (ROADMAP Queue 1 item 8): "
-                "configure icp_settings_with_vel")
+            self.icp_cases = {k: (v,) for k, v in icp_cases_kitti().items()}
         for kind in AlignKind:
             self.icp_cases.setdefault(kind, next(iter(self.icp_cases.values())))
         # every stage the odometry and the search can run
@@ -361,14 +356,10 @@ class LidarOdometry(FrontEndBase):
         if filt_cfg == [] and "pointcloud_filter_class" in c:
             filt_cfg = [{"class": c["pointcloud_filter_class"],
                          "params": c.get("pointcloud_filter_params", {})}]
-        for item, ported, what in ((g, _PORTED_GENERATORS, "generator") for g in gen_cfg or []):
-            if item["class"] not in ported:
-                raise NotImplementedError(f"{what} {item['class']!r} is not ported "
-                                          "(ROADMAP Queue 1 item 12)")
-        for item in filt_cfg:
-            if item["class"] not in _PORTED_FILTERS:
-                raise NotImplementedError(f"filter {item['class']!r} is not ported "
-                                          "(ROADMAP Queue 1 item 12)")
+        # the reference preset's point-count cap, a real filter here
+        cap_count = int(yaml_get(c, "decimate_to_point_count", default=0) or 0)
+        if cap_count > 0:
+            filt_cfg.insert(0, {"class": "FilterDecimateToCount", "params": {"count": cap_count}})
         self.generators = generators_from_config(gen_cfg, device=self.device)
         self.filter_pipeline = FilterPipeline.from_config(filt_cfg)
         if self.worldmodel is None:

@@ -1,11 +1,16 @@
-"""The ICP engine on tensors (port of ``mola_fe_lidar_tpu/models/icp.py``,
-the matchers and loop shapes of the main path).
+"""The ICP engine on tensors (port of ``mola_fe_lidar_tpu/models/icp.py``).
 
-Ported: the ``point2plane_normals`` and ``point2line_knn`` matchers, the
-Gauss-Newton solver with its weak prior, the paired-ratio quality with its
-fixed subsample and its symmetric (reverse-direction) form, the candidate
-cache (top-K refresh every ``cand_refresh`` iterations, exact re-argmin over
-the K candidates in between) and the plain loop. Nearest-neighbour searches
+Ported: the matchers ``point2point``, ``point2plane_normals``,
+``point2plane_knn`` (a plane fit to the kNN neighbourhood every iteration),
+``point2line_knn`` and ``gicp`` (residuals whitened by the combined surface
+covariances); point-to-point pairings folded into the plane-row system as
+three axis-normal rows; the scale-outlier gate and the robust kernels; the
+Gauss-Newton solver with its weak prior and the closed-form Horn and OLAE
+solvers; the paired-ratio quality with its fixed subsample and its
+symmetric (reverse-direction) form; the candidate cache (top-K refresh
+every ``cand_refresh`` iterations, exact re-argmin over the K candidates in
+between; opt-in for the kNN matchers with ``cand_k >= knn``) and the plain
+loop. Anderson acceleration is not ported. Nearest-neighbour searches
 go through the hand-written kernels (``ops/knn_kernel.py`` K1,
 ``ops/nn_kernel.py`` K2), which take their plain twins for CPU tensors:
 every ``nn_backend`` of the reference except ``"grid"`` is the same exact
@@ -39,7 +44,7 @@ from ..cloud.metric_map import MetricMap, PointCloud
 from ..geometry import se3
 from ..ops import eigen3, knn_kernel, nn_kernel
 from ..ops.matching import NNResult
-from ..solve import gauss_newton
+from ..solve import gauss_newton, horn, olae, robust
 from ..solve import quality as quality_mod
 from .config import ICPParams, Matcher
 
@@ -49,7 +54,8 @@ _PLAIN_BLOCK = 4  # iterations between host convergence reads, plain loop
 
 _CAND_KINDS = ("point2point", "point2plane_normals")
 _CAND_KNN_KINDS = ("point2plane_knn", "point2line_knn")
-_PORTED_MATCHERS = ("point2plane_normals", "point2line_knn")
+_MATCHERS = ("point2point", "point2plane_normals", "point2plane_knn", "point2line_knn", "gicp")
+_SOLVERS = ("gauss_newton", "horn", "olae")
 _EXACT_BACKENDS = ("auto", "xla", "fused", "mxu", "pallas")
 
 
@@ -63,9 +69,10 @@ class ICPResult(NamedTuple):
 
 class _Pairings(NamedTuple):
     p: torch.Tensor  # f32[..., K, 3] source points (untransformed)
-    q: torch.Tensor  # f32[..., K, 3] plane anchors
-    n: torch.Tensor  # f32[..., K, 3] plane normals
+    q: torch.Tensor  # f32[..., K, 3] matched target points / plane anchors
+    n: torch.Tensor  # f32[..., K, 3] plane normals (zeros for p2p rows)
     w: torch.Tensor  # f32[..., K] weights (0 drops)
+    is_plane: bool = True
 
 
 def _resolve_backend(backend: str) -> None:
@@ -80,15 +87,17 @@ def _resolve_backend(backend: str) -> None:
 
 
 def check_params(params: ICPParams) -> None:
-    """Raise NotImplementedError for stage settings the port lacks."""
+    """Raise NotImplementedError for stage settings the port lacks and
+    ValueError for settings the reference rejects."""
     for m in params.matchers:
-        if m.kind not in _PORTED_MATCHERS:
-            raise NotImplementedError(
-                f"matcher {m.kind!r} is not ported (ROADMAP Queue 1 item 12)")
+        if m.kind not in _MATCHERS:
+            raise ValueError(f"unknown matcher kind {m.kind!r}")
         _resolve_backend(m.nn_backend)
-    if params.solver.kind != "gauss_newton":
-        raise NotImplementedError(
-            f"solver {params.solver.kind!r} is not ported (ROADMAP Queue 1 item 12)")
+    if params.solver.kind not in _SOLVERS:
+        raise ValueError(f"unknown solver kind {params.solver.kind!r}")
+    if params.solver.kind != "gauss_newton" and not any(
+            m.kind == "point2point" for m in params.matchers):
+        raise ValueError(f"{params.solver.kind} solver needs at least one point2point matcher")
     if params.anderson_m > 0:
         raise NotImplementedError(
             "Anderson acceleration is not ported (ROADMAP Queue 1 item 12)")
@@ -99,10 +108,8 @@ def check_params(params: ICPParams) -> None:
     if params.shard_axis is not None:
         raise NotImplementedError(
             "tensor-parallel align is not ported (ROADMAP Queue 1 item 16)")
-    if params.weights.use_scale_outlier_detector or params.weights.use_robust_kernel:
-        raise NotImplementedError(
-            "pairing re-weighting (scale outliers, robust kernels) is not "
-            "ported (ROADMAP Queue 1 item 7: solve/robust.py)")
+    if params.weights.use_robust_kernel and params.weights.robust_kernel not in robust.ROBUST_KERNELS:
+        raise ValueError(f"unknown robust kernel {params.weights.robust_kernel!r}")
     for q in params.quality:
         if q.kind != "paired_ratio":
             raise ValueError(f"unknown quality kind {q.kind!r}")
@@ -174,39 +181,68 @@ def _matcher_active(m: Matcher, it: torch.Tensor) -> torch.Tensor:
     return act.to(torch.float32)
 
 
+def _knn_fit(neigh, dist):
+    """Centroid, covariance, eigenvalues and valid-neighbour count of kNN
+    neighbourhoods (``neigh [..., k, 3]``; sentinel distances are invalid)."""
+    valid = (dist < 1e9).to(neigh.dtype)
+    _, centroid, cov = eigen3.neighbourhood_covariance(neigh, valid)
+    return centroid, cov, eigen3.sym_eigenvalues_3x3(cov), torch.sum(valid, dim=-1)
+
+
 def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
                cand_idx=None) -> _Pairings:
     src = src_map[m.src_layer]
     tgt = tgt_map[m.tgt_layer]
     sp = se3.transform(pose, src.xyz)
-    act = _matcher_active(m, it)
+    act = _matcher_active(m, it)[..., None]
     f32 = sp.dtype
 
+    def nn1():
+        return (_nn_from_cands(sp, tgt, cand_idx) if cand_idx is not None
+                else _nn_1(sp, src.mask, tgt))
+
+    def nnk():
+        if cand_idx is not None:
+            return _knn_from_cands(sp, tgt, cand_idx, m.knn)
+        return knn_kernel.knn(_c(sp), _c(src.mask), _c(tgt.xyz), _c(tgt.mask), m.knn)
+
+    if m.kind == "point2point":
+        nn = nn1()
+        q = _take(tgt, tgt.xyz, nn.idx.long())
+        w = src.mask * (nn.dist < m.distance_threshold).to(f32) * act
+        return _Pairings(src.xyz, q, torch.zeros_like(q), w, False)
+
     if m.kind == "point2plane_normals":
-        nn = (_nn_from_cands(sp, tgt, cand_idx) if cand_idx is not None
-              else _nn_1(sp, src.mask, tgt))
+        nn = nn1()
         sel = nn.idx.long()
         q = _take(tgt, tgt.xyz, sel)
         normals = _take(tgt, tgt.attrs["normal"], sel)
         gate = (_take(tgt, tgt.attrs["planarity"], sel)[..., 0] if "planarity" in tgt.attrs
                 else torch.ones_like(nn.dist))
-        w = src.mask * (nn.dist < m.distance_threshold).to(f32) * gate * act[..., None]
+        w = src.mask * (nn.dist < m.distance_threshold).to(f32) * gate * act
         return _Pairings(src.xyz, q, normals, w)
+
+    if m.kind == "gicp":
+        # Generalized ICP: the residual whitened by S = C_q + R C_p Rᵀ. The
+        # rows of M⁻¹ (M = chol(S)) satisfy Σ lₖlₖᵀ = S⁻¹: three plane rows
+        # a pairing whose non-unit normals carry the information weight
+        nn = _nn_1(sp, src.mask, tgt)
+        sel = nn.idx.long()
+        q = _take(tgt, tgt.xyz, sel)
+        Cq = _take(tgt, tgt.attrs["cov"], sel).reshape(*q.shape[:-1], 3, 3)
+        Cp = src.attrs["cov"].reshape(*src.xyz.shape[:-1], 3, 3)
+        R = pose.R[..., None, :, :]
+        Minv = eigen3.invert_lower_3x3(eigen3.cholesky_3x3(Cq + R @ Cp @ R.transpose(-1, -2)))
+        w1 = src.mask * (nn.dist < m.distance_threshold).to(f32) * act
+        return _Pairings(torch.repeat_interleave(src.xyz, 3, dim=-2),
+                         torch.repeat_interleave(q, 3, dim=-2), Minv.flatten(-3, -2),
+                         torch.repeat_interleave(w1, 3, dim=-1))
 
     if m.kind == "point2line_knn":
         # LOAM-style edge matching: line fit to the kNN neighbourhood,
         # linearity gate, two plane rows spanning the line's normal plane
-        if cand_idx is not None:
-            nn = _knn_from_cands(sp, tgt, cand_idx, m.knn)
-        else:
-            nn = knn_kernel.knn(_c(sp), _c(src.mask), _c(tgt.xyz), _c(tgt.mask), m.knn)
-        neigh = _take(tgt, tgt.xyz, nn.idx.long())
-        valid = (nn.dist < 1e9).to(f32)
-        cnt = torch.clamp(torch.sum(valid, dim=-1), min=1.0)
-        centroid = torch.sum(neigh * valid[..., None], dim=-2) / cnt[..., None]
-        d = (neigh - centroid[..., None, :]) * valid[..., None]
-        cov = (d.transpose(-1, -2) @ d) / cnt[..., None, None]
-        evs = eigen3.sym_eigenvalues_3x3(cov)
+        nn = nnk()
+        centroid, cov, evs, n_valid = _knn_fit(_take(tgt, tgt.xyz, nn.idx.long()), nn.dist)
         dirv = eigen3.largest_eigenvector_3x3(cov, evs)
         linear = evs[..., 2] >= (1.0 / max(m.plane_eigen_threshold, 1e-3)) * torch.clamp(
             evs[..., 1], min=1e-9)
@@ -218,21 +254,67 @@ def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
         n1 = n1 / torch.clamp(torch.linalg.vector_norm(n1, dim=-1, keepdim=True), min=1e-9)
         n2 = torch.linalg.cross(dirv, n1, dim=-1)
         w1 = (src.mask * (nn.dist[..., 0] < m.distance_threshold).to(f32)
-              * linear.to(f32) * (torch.sum(valid, dim=-1) >= 3.0).to(f32) * act[..., None])
+              * linear.to(f32) * (n_valid >= 3.0).to(f32) * act)
         n_rows = torch.stack([n1, n2], dim=-2).flatten(-3, -2)
         return _Pairings(torch.repeat_interleave(src.xyz, 2, dim=-2),
                          torch.repeat_interleave(centroid, 2, dim=-2),
                          n_rows, torch.repeat_interleave(w1, 2, dim=-1))
 
-    raise NotImplementedError(f"matcher {m.kind!r} is not ported")
+    if m.kind == "point2plane_knn":
+        nn = nnk()
+        centroid, cov, evs, n_valid = _knn_fit(_take(tgt, tgt.xyz, nn.idx.long()), nn.dist)
+        # an exactly collinear neighbourhood passes the planar gate but has
+        # no normal: its +z fallback is gated out by ``well``
+        normal, well = eigen3.smallest_eigenvector_3x3(cov, evs, return_valid=True)
+        planar = evs[..., 0] <= m.plane_eigen_threshold * torch.clamp(evs[..., 2], min=1e-12)
+        w = (src.mask * (nn.dist[..., 0] < m.distance_threshold).to(f32) * planar.to(f32)
+             * well.to(f32) * (n_valid >= 3.0).to(f32) * act)
+        return _Pairings(src.xyz, centroid, normal, w)
+
+    raise ValueError(f"unknown matcher kind {m.kind!r}")
 
 
-def _gather(pose, it, src_map, tgt_map, params: ICPParams, cands=None) -> _Pairings:
-    rows = [_match_one(m, pose, it, src_map, tgt_map,
-                       cands[i] if cands is not None else None)
-            for i, m in enumerate(params.matchers)]
-    return _Pairings(*(torch.cat([getattr(r, f) for r in rows], dim=-2 if f != "w" else -1)
-                       for f in ("p", "q", "n", "w")))
+def _expand_p2p(pr: _Pairings) -> _Pairings:
+    """A point-to-point pairing as three axis-normal plane rows."""
+    eye = torch.eye(3, dtype=pr.p.dtype, device=pr.p.device)
+    n = eye.repeat(pr.p.shape[-2], 1).expand(*pr.p.shape[:-2], 3 * pr.p.shape[-2], 3)
+    return _Pairings(torch.repeat_interleave(pr.p, 3, dim=-2),
+                     torch.repeat_interleave(pr.q, 3, dim=-2), n,
+                     torch.repeat_interleave(pr.w, 3, dim=-1))
+
+
+def _apply_pair_weights(pr: _Pairings, pose, params: ICPParams) -> _Pairings:
+    """The scale-outlier gate, then the robust kernel's IRLS weights at the
+    current pose (point-to-plane or point-to-point residuals)."""
+    pw = params.weights
+    w = pr.w
+    if pw.use_scale_outlier_detector:
+        w = robust.scale_outlier_weights(pr.p, pr.q, w, pw.scale_outlier_threshold)
+    if pw.use_robust_kernel:
+        diff = se3.transform(pose, pr.p) - pr.q
+        r = (torch.abs(torch.sum(diff * pr.n, dim=-1)) if pr.is_plane
+             else torch.linalg.vector_norm(diff, dim=-1))
+        w = w * robust.robust_weights(r, pw.robust_kernel, pw.robust_kernel_param,
+                                      pw.robust_kernel_scale)
+    return pr._replace(w=w)
+
+
+def _gather(pose, it, src_map, tgt_map, params: ICPParams, cands=None):
+    """Every matcher's pairings, re-weighted: (the plane-row system, the
+    raw point-to-point pairings for the closed-form solvers)."""
+    plane_rows, p2p_rows = [], []
+    for i, m in enumerate(params.matchers):
+        pr = _apply_pair_weights(_match_one(m, pose, it, src_map, tgt_map,
+                                            cands[i] if cands is not None else None),
+                                 pose, params)
+        if pr.is_plane:
+            plane_rows.append(pr)
+        else:
+            p2p_rows.append(pr)
+            plane_rows.append(_expand_p2p(pr))
+    plane = _Pairings(*(torch.cat([getattr(r, f) for r in plane_rows], dim=-2 if f != "w" else -1)
+                        for f in ("p", "q", "n", "w")))
+    return plane, p2p_rows
 
 
 def _prior_weights(params: ICPParams, dev) -> torch.Tensor:
@@ -245,12 +327,17 @@ def _prior_weights(params: ICPParams, dev) -> torch.Tensor:
     return torch.tensor([wt] * 3 + [wr] * 3, dtype=torch.float32, device=dev)
 
 
-def _solve(pose, plane: _Pairings, params: ICPParams, init_pose, prior_w) -> se3.Pose:
+def _solve(pose, plane: _Pairings, p2p_rows, params: ICPParams, init_pose,
+           prior_w) -> se3.Pose:
     s = params.solver
-    return gauss_newton.point_to_plane_step(
-        pose, plane.p, plane.q, plane.n, plane.w,
-        inner_iterations=s.max_iterations, damping=s.damping,
-        prior_pose=init_pose if prior_w is not None else None, prior_w=prior_w).pose
+    if s.kind == "gauss_newton":
+        return gauss_newton.point_to_plane_step(
+            pose, plane.p, plane.q, plane.n, plane.w,
+            inner_iterations=s.max_iterations, damping=s.damping,
+            prior_pose=init_pose if prior_w is not None else None, prior_w=prior_w).pose
+    p, q, w = (torch.cat([getattr(r, f) for r in p2p_rows], dim=-2 if f != "w" else -1)
+               for f in ("p", "q", "w"))
+    return (olae.weighted_olae if s.kind == "olae" else horn.weighted_horn)(p, q, w)
 
 
 @functools.lru_cache(maxsize=None)
@@ -332,8 +419,8 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
     prior_w = _prior_weights(params, dev)
 
     def step(pose, it, cands):
-        plane = _gather(pose, it, src_map, tgt_map, params, cands)
-        new_pose = _solve(pose, plane, params, init_pose, prior_w)
+        plane, p2p_rows = _gather(pose, it, src_map, tgt_map, params, cands)
+        new_pose = _solve(pose, plane, p2p_rows, params, init_pose, prior_w)
         # too few effective pairings: stall instead of trusting the solve
         new_pose = _freeze(torch.sum(plane.w, dim=-1) >= 6.0, new_pose, pose)
         delta = se3.log(se3.compose(new_pose, se3.inverse(pose)))
@@ -365,7 +452,7 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
         finished = all(d > 0.5 or n >= params.max_iterations for n, d in zip(n_it, is_done))
 
     # final system at the converged pose -> covariance
-    plane = _gather(pose, it, src_map, tgt_map, params)
+    plane, _ = _gather(pose, it, src_map, tgt_map, params)
     final = gauss_newton.point_to_plane_step(pose, plane.p, plane.q, plane.n, plane.w,
                                              inner_iterations=0)
     cov = gauss_newton.covariance_from_normal_matrix(
@@ -387,3 +474,17 @@ def align_pipeline(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
         result = align(src_map, tgt_map, pose, st)
         pose = result.pose
     return result
+
+
+def align_with_normal_precompute(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
+                                 params: ICPParams, normals_k: int = 8) -> ICPResult:
+    """``align`` after attaching kNN normals (``normals_k`` neighbours) to
+    every ``point2plane_normals`` target layer that has none."""
+    from ..filters.pipeline import _attach_normals_knn
+
+    tgt_map = dict(tgt_map)
+    for m in params.matchers:
+        layer = tgt_map[m.tgt_layer]
+        if m.kind == "point2plane_normals" and "normal" not in layer.attrs:
+            tgt_map[m.tgt_layer] = _attach_normals_knn(layer.xyz, layer.mask, normals_k)
+    return align(src_map, tgt_map, init_pose, params)

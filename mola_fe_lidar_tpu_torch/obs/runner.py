@@ -50,6 +50,79 @@ REALTIME = (
 )
 SLICE = ("pipelined_scan_step=false",)
 
+# The reference runner's configuration for a replay without --config, a
+# copy of ``mola_fe_lidar_tpu/obs/runner.py::DEFAULT_CFG`` (held equal by
+# tests/test_torch_copies.py): a 0.7 m voxel downsample to 8192 points, a
+# wide point-to-point Horn stage, then kNN = 6 point-to-plane. The port runs
+# it through :func:`default_config`.
+DEFAULT_CFG = {"params": {
+    "min_time_between_scans": 0.01,
+    "min_dist_xyz_between_keyframes": 3.0,
+    "min_icp_goodness": 0.30,
+    "min_icp_goodness_lc": 0.40,
+    "min_dist_to_matching": 4.0,
+    "max_dist_to_matching": 10.0,
+    "max_dist_to_loop_closure": 14.0,
+    "min_topo_dist_to_consider_loopclosure": 8,
+    "loop_closure_montecarlo_samples": 6,
+    "pointcloud_generator": [
+        {"class": "GeneratorRawPoints", "params": {"capacity": 8192}}],
+    "pointcloud_filter": [
+        {"class": "FilterVoxelDownsample",
+         "params": {"voxel_size": 0.7, "output_capacity": 8192}}],
+    # coarse-to-fine stage vector: the wide point-to-point stage captures
+    # large per-scan motion/rotation before the fine point-to-plane polish
+    "icp_settings_with_vel": [
+        {
+            "params": {"maxIterations": 10},
+            "matchers": [{"class": "Matcher_Points_DistanceThreshold",
+                          "params": {"distanceThreshold": 6.0,
+                                     "src_layer": "decimated",
+                                     "tgt_layer": "decimated"}}],
+            "solvers": [{"class": "Solver_Horn"}],
+            "quality": [{"class": "QualityEvaluator_PairedRatio",
+                         "params": {"thresholdDistance": 0.3,
+                                    "src_layer": "raw", "tgt_layer": "raw"}}],
+        },
+        {
+            "params": {"maxIterations": 30},
+            "matchers": [{"class": "Matcher_Point2Plane",
+                          "params": {"distanceThreshold": 2.0, "knn": 6,
+                                     "planeEigenThreshold": 0.2,
+                                     "src_layer": "decimated",
+                                     "tgt_layer": "decimated"}}],
+            "solvers": [{"class": "Solver_GaussNewton",
+                         "params": {"maxIterations": 8}}],
+            "quality": [{"class": "QualityEvaluator_PairedRatio",
+                         "params": {"thresholdDistance": 0.3,
+                                    "src_layer": "raw", "tgt_layer": "raw"}}],
+        },
+    ],
+}}
+
+
+def _apply_overrides(p: dict, overrides) -> None:
+    """``key.path=json`` overrides into the ``params`` dict ``p``."""
+    for kv in overrides:
+        key, _, val = kv.partition("=")
+        try:
+            parsed = json.loads(val)
+        except json.JSONDecodeError:
+            parsed = val
+        parts = [int(x) if x.lstrip("-").isdigit() else x for x in key.split(".")]
+        node = p
+        for part in parts[:-1]:
+            node = node[part]
+        node[parts[-1]] = parsed
+
+
+def default_config(overrides=()) -> dict:
+    """:data:`DEFAULT_CFG` as the port runs it (with :data:`SLICE`), plus
+    ``key.path=json`` overrides."""
+    cfg = copy.deepcopy(DEFAULT_CFG)
+    _apply_overrides(cfg["params"], SLICE + tuple(overrides))
+    return cfg
+
 
 def build_config(deskew: bool = True, scale: float = 1.0, local_map: bool = True,
                  overrides=()) -> dict:
@@ -74,17 +147,7 @@ def build_config(deskew: bool = True, scale: float = 1.0, local_map: bool = True
             + p["pointcloud_filter"])
     if local_map:
         p["odometry_reference"] = "local_map"
-    for kv in overrides:
-        key, _, val = kv.partition("=")
-        try:
-            parsed = json.loads(val)
-        except json.JSONDecodeError:
-            parsed = val
-        parts = [int(x) if x.lstrip("-").isdigit() else x for x in key.split(".")]
-        node = p
-        for part in parts[:-1]:
-            node = node[part]
-        node[parts[-1]] = parsed
+    _apply_overrides(p, overrides)
     return cfg
 
 

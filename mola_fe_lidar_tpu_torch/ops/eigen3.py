@@ -1,8 +1,11 @@
-"""Closed-form symmetric 3x3 eigen-decomposition, batched (port of
-``mola_fe_lidar_tpu/ops/eigen3.py``, the parts on the main path).
+"""Closed-form 3x3 linear algebra, batched (port of
+``mola_fe_lidar_tpu/ops/eigen3.py``).
 
-Eigenvalues by the trigonometric method; eigenvectors from the column space
-of ``(A - λi I)(A - λj I)``, largest column for conditioning.
+Symmetric eigenvalues by the trigonometric method; eigenvectors from the
+column space of ``(A - λi I)(A - λj I)``, largest column for conditioning;
+the planarity score of the normal filters; the closed-form Cholesky factor
+and lower-triangular inverse of the GICP matcher. Element-wise tensor ops
+only: nothing here waits for the device.
 """
 
 from __future__ import annotations
@@ -67,3 +70,68 @@ def largest_eigenvector_3x3(A: torch.Tensor, eigenvalues=None) -> torch.Tensor:
     ok = n[..., 0] > 1e-9
     fallback = eye[0].expand_as(v)  # +x
     return torch.where(ok[..., None], v / torch.where(ok[..., None], n, torch.ones_like(n)), fallback)
+
+
+def planarity_score_3x3(eigenvalues: torch.Tensor, rel_floor: float = 1e-3) -> torch.Tensor:
+    """Planarity in [0, 1] from ascending eigenvalues: ``1 - λ0/λ1``, gated
+    to 0 for line-like spectra (λ1 ≤ rel_floor·λ2), whose λ0/λ1 ratio is
+    f32 noise."""
+    e0, e1, e2 = eigenvalues[..., 0], eigenvalues[..., 1], eigenvalues[..., 2]
+    score = torch.clamp(1.0 - e0 / torch.clamp(e1, min=1e-9), 0.0, 1.0)
+    return score * (e1 > rel_floor * torch.clamp(e2, min=_EPS)).to(score.dtype)
+
+
+def cholesky_3x3(A: torch.Tensor, jitter: float = 1e-9) -> torch.Tensor:
+    """Closed-form lower Cholesky factor of SPD [..., 3, 3] (pivots floored
+    at ``jitter``)."""
+    l00 = torch.sqrt(torch.clamp(A[..., 0, 0], min=jitter))
+    l10 = A[..., 1, 0] / l00
+    l20 = A[..., 2, 0] / l00
+    l11 = torch.sqrt(torch.clamp(A[..., 1, 1] - l10 * l10, min=jitter))
+    l21 = (A[..., 2, 1] - l20 * l10) / l11
+    l22 = torch.sqrt(torch.clamp(A[..., 2, 2] - l20 * l20 - l21 * l21, min=jitter))
+    zero = torch.zeros_like(l00)
+    return torch.stack([torch.stack([l00, zero, zero], dim=-1),
+                        torch.stack([l10, l11, zero], dim=-1),
+                        torch.stack([l20, l21, l22], dim=-1)], dim=-2)
+
+
+def invert_lower_3x3(L: torch.Tensor) -> torch.Tensor:
+    """Inverse of lower-triangular [..., 3, 3] (closed form)."""
+    l11 = L[..., 1, 1]
+    i00 = 1.0 / L[..., 0, 0]
+    i11 = 1.0 / l11
+    i22 = 1.0 / L[..., 2, 2]
+    i10 = -L[..., 1, 0] * i00 * i11
+    i20 = (L[..., 1, 0] * L[..., 2, 1] - L[..., 2, 0] * l11) * i00 * i11 * i22
+    i21 = -L[..., 2, 1] * i11 * i22
+    zero = torch.zeros_like(i00)
+    return torch.stack([torch.stack([i00, zero, zero], dim=-1),
+                        torch.stack([i10, i11, zero], dim=-1),
+                        torch.stack([i20, i21, i22], dim=-1)], dim=-2)
+
+
+def neighbourhood_covariance(neigh: torch.Tensor, valid: torch.Tensor):
+    """(count, centroid, covariance) of kNN neighbourhoods ``neigh [..., k,
+    3]`` over the rows where ``valid [..., k]`` is 1; count floored at 1.
+
+    The f32 operations are the reference's, in its order: the centroid
+    summed over k in sequence, the covariance accumulated as one fused
+    multiply-add per neighbour (XLA's CPU dot; emulated by adding the exact
+    product in f64 and rounding to f32 at each step). The order matters:
+    on a line-like neighbourhood (λ0 ≈ λ1 ≪ λ2) the trigonometric
+    eigenvalues sit where ``acos`` is steep, and one ulp of the covariance
+    moves λ0 and λ1, and so the normal, by far more than round-off.
+    """
+    cnt = torch.clamp(torch.sum(valid, dim=-1), min=1.0)
+    weighted = neigh * valid[..., None]
+    total = weighted[..., 0, :]
+    for j in range(1, neigh.shape[-2]):
+        total = total + weighted[..., j, :]
+    centroid = total / cnt[..., None]
+    d = ((neigh - centroid[..., None, :]) * valid[..., None]).to(torch.float64)
+    outer = d[..., :, :, None] * d[..., :, None, :]  # exact in f64
+    acc = outer[..., 0, :, :].to(neigh.dtype)
+    for j in range(1, neigh.shape[-2]):
+        acc = (acc.to(torch.float64) + outer[..., j, :, :]).to(neigh.dtype)
+    return cnt, centroid, acc / cnt[..., None, None]

@@ -6,7 +6,11 @@
 ``csrc/knn_common.cuh``) for CUDA tensors and returns the plain twin
 ``ops.matching.knn`` for CPU tensors; any other device raises. On the main
 path it serves the candidate-cache refreshes (k = 4 for decimated -> planes
-and k = 8 for edges -> edges) and the point-to-line matcher (k = 5).
+and k = 8 for edges -> edges) and the point-to-line matcher (k = 5); on the
+pairwise-registration path the ``point2plane_knn`` matcher (k = 6), the kNN
+normals (k = 8) and the GICP covariances (k = 10). The Pallas kernel takes
+any k <= 128; K1 is compiled for ``SUPPORTED_K`` and raises for other k on
+CUDA tensors.
 
 Both wrappers take one search (``src [N,3]``, ``tgt [M,3]``) or a batch of
 B independent ones (``src [B,N,3]``, ``tgt [B,M,3]``, masks ``[B,N]`` /
@@ -29,7 +33,7 @@ import torch
 from . import cuda_build
 from .matching import NNResult, knn as knn_plain
 
-SUPPORTED_K = (1, 4, 5, 8, 16)
+SUPPORTED_K = (1, 4, 5, 6, 8, 10, 16)
 #: sources per thread compiled for every k (``csrc/knn.cu`` instantiates
 #: exactly these; ``-Xptxas -v`` shows no spills at any of them)
 ROWS = (1, 2)

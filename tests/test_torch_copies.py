@@ -181,3 +181,47 @@ def test_logger_throttle_copy_is_the_reference():
         finally:
             log.logger.removeHandler(keep)
         assert keep.records == ["dropped scan 0"]
+
+
+def test_default_cfg_copy_is_the_reference():
+    from mola_fe_lidar_tpu.obs import runner as jrunner
+    from mola_fe_lidar_tpu_torch.obs import runner
+
+    assert runner.DEFAULT_CFG == jrunner.DEFAULT_CFG
+    cfg = runner.default_config()
+    assert cfg["params"]["pipelined_scan_step"] is False
+    assert {k: v for k, v in cfg["params"].items() if k != "pipelined_scan_step"} == \
+        jrunner.DEFAULT_CFG["params"]
+
+
+def _bench():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("bench", REPO / "bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # defines functions only; its main is guarded
+    return mod
+
+
+def test_scan_pair_copies_are_the_reference():
+    from mola_fe_lidar_tpu_torch.obs import scan_pairs
+
+    bench = _bench()
+    for n in (8, 2048, 2047):
+        np.testing.assert_array_equal(scan_pairs.make_world(np.random.default_rng(n), n),
+                                      bench.make_world(np.random.default_rng(n), n))
+    got = scan_pairs.make_pairs(np.random.default_rng(7), 3, 256, tau_sigma=0.2)
+    want = bench.make_pairs(np.random.default_rng(7), 3, 256, tau_sigma=0.2)
+    for (w, tau), (wj, tauj) in zip(got, want):
+        np.testing.assert_array_equal(w, wj)
+        np.testing.assert_array_equal(tau, tauj)
+    for tau in (np.zeros(6), np.r_[1.0, -2.0, 0.5, 1e-9, 0.0, 0.0], np.r_[0.3, 0.1, -0.2, 0.4, -0.3, 1.2]):
+        for a, b in zip(scan_pairs._cpu_se3_exp(tau), bench._cpu_se3_exp(tau)):
+            np.testing.assert_array_equal(a, b)
+    # the stacked pair clouds (outlier pairs: a separate target world)
+    pairs = got[:2] + [((got[2][0], got[2][0][::-1].copy()), got[2][1])]
+    srcs, tgts, taus = scan_pairs.stack_pairs(pairs, 256, device="cpu")
+    jsrcs, jtgts, jtaus = bench._stack_pairs(pairs, 256)
+    np.testing.assert_array_equal(srcs["raw"].xyz.numpy(), np.asarray(jsrcs["raw"].xyz))
+    np.testing.assert_array_equal(tgts["raw"].xyz.numpy(), np.asarray(jtgts["raw"].xyz))
+    np.testing.assert_array_equal(srcs["raw"].mask.numpy(), np.asarray(jsrcs["raw"].mask))

@@ -175,3 +175,125 @@ def test_metric_map_npz_and_numpy_layers_cross_packages(tmp_path, rng):
         {"raw": {"xyz": np.asarray(pcj.xyz), "mask": np.asarray(pcj.mask),
                  "attrs": {"time": np.asarray(pcj.attrs["time"])}}}, device="cpu"))
     np.testing.assert_array_equal(layers["raw"]["xyz"], np.asarray(pcj.xyz))
+
+
+# ---------------------------------------------------------------------------
+# the pairwise-registration path's filters and the segment statistics
+
+@pytest.mark.parametrize("num_segments", [None, 700])
+def test_voxel_stats_are_the_reference_bit_for_bit(scan, num_segments):
+    """Rows of a voxel are summed in order, as XLA's segment_sum does; the
+    one difference is XLA's flush of subnormal results to zero."""
+    raw, _ = _raw(scan)
+    xyz, mask = raw.xyz.numpy(), raw.mask.numpy()
+    s = num_segments or xyz.shape[0]  # 700 overflows: the tail goes to the trash slot
+    st = voxel.voxel_stats(voxel.lex_sort_by_voxel(_t(xyz), _t(mask), 1.0), s)
+    sj = jax.jit(lambda a, b: jvoxel.voxel_stats(jvoxel.lex_sort_by_voxel(a, b, 1.0), s))(
+        jnp.asarray(xyz), jnp.asarray(mask))
+    for f in ("count", "mean", "cov", "valid"):
+        np.testing.assert_allclose(getattr(st, f).numpy(), np.asarray(getattr(sj, f)),
+                                   rtol=0, atol=np.finfo(np.float32).tiny)
+
+
+def _small(scan, capacity=2048):
+    """The scan voxel-downsampled to at most 2048 points, in both packages."""
+    raw, rawj = _raw(scan)
+    kw = dict(voxel_size=0.5, output_capacity=capacity, output_layer="raw")
+    return (pipeline.FilterVoxelDownsample(**kw)({"raw": raw})["raw"],
+            jpipe.FilterVoxelDownsample(**kw)({"raw": rawj})["raw"])
+
+
+def _same_layer(pc, pj, atol=1e-6):
+    np.testing.assert_array_equal(pc.mask.numpy(), np.asarray(pj.mask))
+    np.testing.assert_allclose(pc.xyz.numpy(), np.asarray(pj.xyz), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("cls, kw", [
+    ("FilterVoxelDownsample", dict(voxel_size=0.7, method="first", output_capacity=4096)),
+    ("FilterVoxelDownsample", dict(voxel_size=0.7, method="mean", output_capacity=4096)),
+    ("FilterVoxelDownsample", dict(voxel_size=0.3, method="mean", output_capacity=2048)),
+    ("mp2p_icp_filters::FilterDecimateVoxels", dict(voxel_size=1.0)),
+    ("FilterDecimate", dict(decimation=7)),
+    ("FilterDecimate", dict(decimation=3, output_capacity=1000)),
+    ("FilterBoundingBox", dict(min_corner=(-20, -15, -1), max_corner=(25, 30, 3))),
+    ("mp2p_icp_filters::FilterBoundingBox", dict(min_corner=(-5, -5, -3), max_corner=(5, 5, 3),
+                                                 keep_inside=False)),
+])
+def test_point_filters_match(scan, cls, kw):
+    from mola_fe_lidar_tpu.filters.base import FILTER_REGISTRY as JREG
+    from mola_fe_lidar_tpu_torch.filters.base import FILTER_REGISTRY
+
+    raw, rawj = _raw(scan)
+    out = FILTER_REGISTRY.get(cls)(**kw)({"raw": raw})
+    outj = JREG.get(cls)(**kw)({"raw": rawj})
+    assert set(out) == set(outj)
+    for name in out:
+        _same_layer(out[name], outj[name])
+
+
+def test_decimate_to_count_keeps_attributes(scan):
+    raw, rawj = _raw(scan)
+    out = pipeline.FilterDecimateToCount(count=3000)({"raw": raw})["raw"]
+    outj = jpipe.FilterDecimateToCount(count=3000)({"raw": rawj})["raw"]
+    _same_layer(out, outj, atol=0)
+    np.testing.assert_array_equal(out.attrs["time"].numpy(), np.asarray(outj.attrs["time"]))
+
+
+def test_filter_registry_has_every_reference_name():
+    from mola_fe_lidar_tpu.filters.base import FILTER_REGISTRY as JREG
+    from mola_fe_lidar_tpu_torch.filters.base import FILTER_REGISTRY
+
+    assert set(JREG.names()) <= set(FILTER_REGISTRY.names())
+
+
+# planarity 1 - λ0/λ1 amplifies the eigenvalues' round-off where λ1 is small
+PLANARITY_ATOL = 1e-3
+
+
+def _normal_agreement(a, b, mask):
+    """|cos| between the normals of the masked rows (a normal's sign is
+    the eigen-extraction's choice, the same in both packages)."""
+    return np.abs(np.sum(a * b, axis=-1))[mask > 0.5]
+
+
+@pytest.mark.parametrize("method", ["knn", "voxel"])
+def test_normals_match(scan, method):
+    pc, pj = _small(scan)
+    kw = dict(method=method, knn=8, voxel_size=1.5, max_voxels=1024)
+    out = pipeline.FilterNormals(**kw)({"raw": pc})["raw"]
+    outj = jpipe.FilterNormals(**kw)({"raw": pj})["raw"]
+    _same_layer(out, outj, atol=0)
+    pl, plj = out.attrs["planarity"].numpy(), np.asarray(outj.attrs["planarity"])
+    m = pc.mask.numpy()
+    np.testing.assert_allclose(pl, plj, atol=PLANARITY_ATOL)
+    planar = (plj[:, 0] > 0.5) & (m > 0.5)
+    cos = _normal_agreement(out.attrs["normal"].numpy(), np.asarray(outj.attrs["normal"]), planar)
+    # a kNN set can differ where two neighbours tie within the reference's
+    # norm-expansion round-off (~1e-4 m): a handful of rows, not more
+    assert np.mean(cos > 1 - 1e-4) > 0.99, np.sort(cos)[:5]
+
+
+def test_gicp_covariances_match(scan):
+    pc, pj = _small(scan)
+    out = pipeline.FilterGICPCovariances(knn=10)({"raw": pc})["raw"]
+    outj = jpipe.FilterGICPCovariances(knn=10)({"raw": pj})["raw"]
+    C, Cj = out.attrs["cov"].numpy(), np.asarray(outj.attrs["cov"])
+    planar = (np.asarray(outj.attrs["planarity"])[:, 0] > 0.5) & (pc.mask.numpy() > 0.5)
+    close = np.all(np.abs(C - Cj) < 1e-4, axis=-1)[planar]
+    assert np.mean(close) > 0.99
+    np.testing.assert_allclose(out.attrs["planarity"].numpy(), np.asarray(outj.attrs["planarity"]),
+                               atol=PLANARITY_ATOL)
+
+
+def test_edges_planes_segment_mode(scan):
+    raw, rawj = _raw(scan)
+    kw = dict(voxel_filter_resolution=1.0, edges_capacity=256, planes_capacity=1024,
+              decimated_capacity=1024, stats_mode="segment", max_voxels=3000)
+    out = pipeline.FilterEdgesPlanes(**kw)({"raw": raw})
+    outj = jpipe.FilterEdgesPlanes(**kw)({"raw": rawj})
+    # the segment statistics are bit-identical, so are the classes
+    for name in ("edges", "planes", "decimated"):
+        _same_layer(out[name], outj[name], atol=0)
+    pm = out["planes"].mask.numpy() > 0.5
+    np.testing.assert_allclose(out["planes"].attrs["normal"].numpy()[pm],
+                               np.asarray(outj["planes"].attrs["normal"])[pm], atol=1e-3)

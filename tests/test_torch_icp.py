@@ -90,11 +90,18 @@ def test_unported_stage_settings_raise(setup):
     port = setup[0]
     stage = port._stages_for(AlignKind.LIDAR_ODOMETRY, False)[0]
     bad = [dataclasses.replace(stage, anderson_m=3),
-           dataclasses.replace(stage, solver=dataclasses.replace(stage.solver, kind="horn")),
-           dataclasses.replace(stage, matchers=(dataclasses.replace(
-               stage.matchers[0], kind="point2point"),)),
+           dataclasses.replace(stage, cand_refresh_min_trans=0.05),
+           dataclasses.replace(stage, shard_axis="model"),
            dataclasses.replace(stage, matchers=(dataclasses.replace(
                stage.matchers[0], nn_backend="grid"),))]
     for params in bad:
         with pytest.raises(NotImplementedError):
             icp.check_params(params)
+    # ported since: point-to-point matching with the closed-form solvers;
+    # like the reference, those solvers need a point-to-point matcher
+    p2p = dataclasses.replace(stage.matchers[0], kind="point2point")
+    for kind in ("horn", "olae"):
+        solver = dataclasses.replace(stage.solver, kind=kind)
+        icp.check_params(dataclasses.replace(stage, solver=solver, matchers=(p2p,)))
+        with pytest.raises(ValueError):
+            icp.check_params(dataclasses.replace(stage, solver=solver))

@@ -146,8 +146,37 @@ def test_wrappers_take_the_twin_on_cpu(rng):
         knn_kernel.knn(*(x.to("meta") for x in _t(src, sm, tgt, tm)), 5)
 
 
+@pytest.mark.parametrize("k", [6, 10])
+def test_self_knn_with_duplicates(rng, interp, k):
+    """Source = target (the normal and GICP filters) on a grid: every point
+    is its own nearest neighbour, and duplicates tie at d² = 0. The k
+    smallest distances are the same multiset as the Pallas kernel's; the
+    twin (and, bit for bit, the CUDA kernel) orders equal distances by
+    target index, where Pallas orders them by its tile merge. So indices
+    are held equal to Pallas only on rows without a tie at the k-th place,
+    and the twin's own order is checked."""
+    xyz = rng.integers(-3, 4, (400, 3)).astype(np.float32)
+    xyz[200:] += (rng.standard_normal((200, 3)) * 0.3).astype(np.float32)
+    mask = (rng.uniform(size=400) < 0.9).astype(np.float32)
+    xyz[mask < 0.5] = 1e6
+    res = matching.knn(*_t(xyz, mask, xyz, mask), k)
+    pal = pknn.pallas_knn(*_j(xyz, mask, xyz, mask), k=k, src_block=128, tgt_tile=128)
+    ok = mask > 0.5
+    d, idx = res.dist.numpy()[ok], res.idx.numpy()[ok]
+    np.testing.assert_allclose(d, np.asarray(pal.dist)[ok], rtol=1e-6)
+    assert np.all(d[:, 0] == 0.0)
+    # (d², index) ascending, and each index at its reported distance
+    assert np.all((np.diff(d, axis=1) > 0) | ((np.diff(d, axis=1) == 0) & (np.diff(idx, axis=1) > 0)))
+    src = np.where(ok)[0]
+    np.testing.assert_allclose(np.linalg.norm(xyz[idx] - xyz[src, None], axis=-1), d, atol=1e-6)
+    nxt = matching.knn(*_t(xyz, mask, xyz, mask), k + 1).dist.numpy()[ok, k]
+    clear = np.all(np.diff(d, axis=1) > 0, axis=1) & (nxt > d[:, -1])
+    assert 0.1 < clear.mean() < 1.0  # both tie-free and tied rows are present
+    np.testing.assert_array_equal(idx[clear], np.asarray(pal.idx)[ok][clear])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 4, 5, 8, 16])
+@pytest.mark.parametrize("k", knn_kernel.SUPPORTED_K)
 def test_cuda_kernels_match_twins(rng, k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python3 chip_smoke.py, or pytest -m cuda on one)")

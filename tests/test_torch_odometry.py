@@ -203,13 +203,29 @@ sys.meta_path.insert(0, Block())
 sys.path.insert(0, sys.argv[1])
 import torch
 torch.set_num_threads(1)
+import numpy as np
+from mola_fe_lidar_tpu_torch.geometry import se3
+from mola_fe_lidar_tpu_torch.models import align, icp_settings_regular
 from mola_fe_lidar_tpu_torch.obs.hdl64 import hdl64_sequence
-from mola_fe_lidar_tpu_torch.obs.runner import realtime_config, run_replay
+from mola_fe_lidar_tpu_torch.obs.runner import default_config, realtime_config, run_replay
+from mola_fe_lidar_tpu_torch.obs.scan_pairs import make_pairs, stack_pairs
+from mola_fe_lidar_tpu_torch.obs.synthetic import SyntheticWorld, synthetic_sequence
 obs, gt = hdl64_sequence(n_scans=2, n_azimuth=128)
 res = run_replay(obs, realtime_config(128 / 2048), gt_poses=gt, device="cpu")
 res["module"].shutdown()
+# the pairwise path: a quickstart replay and a kNN = 6 align of a scan pair
+world = SyntheticWorld(extent=60.0, n_world_points=20_000, points_per_scan=512, seed=1)
+qobs, qgt = synthetic_sequence(kind="circle", n_scans=40, loop_side=40 / 3.14159, world=world)
+quick = run_replay(qobs[:2], default_config(("pointcloud_generator.0.params.capacity=512",
+                                             "pointcloud_filter.0.params.output_capacity=512")),
+                   gt_poses=qgt[:2], device="cpu")
+quick["module"].shutdown()
+src, tgt, _ = stack_pairs(make_pairs(np.random.default_rng(7), 2, 256), 256, device="cpu")
+pair = align(src, tgt, se3.Pose(torch.eye(3).expand(2, 3, 3), torch.zeros(2, 3)),
+             icp_settings_regular())
 print(json.dumps({"n_keyframes": res["n_keyframes"], "jobs_abandoned": res["jobs_abandoned"],
-                  "n_poses": len(res["scan_poses"]),
+                  "n_poses": len(res["scan_poses"]), "quick_poses": len(quick["scan_poses"]),
+                  "pair_finite": bool(torch.isfinite(pair.pose.t).all()),
                   "loaded": sorted(m for m in sys.modules
                                    if m.split(".")[0] in ("jax", "jaxlib", "mola_fe_lidar_tpu"))}))
 """
@@ -237,7 +253,8 @@ def test_port_runs_with_jax_and_the_reference_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"n_keyframes": 1, "jobs_abandoned": 0, "n_poses": 2, "loaded": []}
+    assert out == {"n_keyframes": 1, "jobs_abandoned": 0, "n_poses": 2, "quick_poses": 2,
+                   "pair_finite": True, "loaded": []}
 
 
 @pytest.mark.parametrize("override", [
@@ -248,10 +265,21 @@ def test_port_runs_with_jax_and_the_reference_blocked():
     "local_map_async_build=true",
     "local_map_min_views=2",
     "mesh_data=2",
-    "decimate_to_point_count=4096",
-    "pointcloud_filter.1.params.stats_mode=segment",
 ])
 def test_unported_settings_raise(override):
     cfg = runner.build_config(overrides=runner.REALTIME + runner.SLICE + (override,))
     with pytest.raises(NotImplementedError):
         runner.build_module(cfg, device="cpu").shutdown()
+
+
+@pytest.mark.parametrize("override, first_filter", [
+    ("decimate_to_point_count=4096", "FilterDecimateToCount"),
+    ("pointcloud_filter.1.params.stats_mode=segment", "FilterDeskew"),
+])
+def test_settings_ported_since_build(override, first_filter):
+    cfg = runner.build_config(overrides=runner.REALTIME + runner.SLICE + (override,))
+    module = runner.build_module(cfg, device="cpu")
+    try:
+        assert type(module.filter_pipeline.filters[0]).__name__ == first_filter
+    finally:
+        module.shutdown()
