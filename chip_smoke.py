@@ -21,20 +21,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and ``plain_ms`` (the twin);
 4. simulate full-resolution HDL-64 scans (131,072 rays each) and replay
    them through the port's ``run_replay`` with the KITTI preset at the
-   realtime operating point on ``cuda`` -- the scan step and the preset's
-   nearby-keyframe window -- with every kernel's launch count (in all and
-   per shape) reset just before and read just after; check the trajectory
-   and that nearby batches ran;
+   realtime operating point on ``cuda`` -- the pipelined scan step (the
+   reference's default) and the preset's nearby-keyframe window -- with
+   every kernel's launch count (in all and per shape) reset just before and
+   read just after; check the trajectory, that nearby batches ran and that
+   the pipeline prefetched all but 3 scans and never switched itself off;
+   then :func:`scan_step_forms`: the same scans with the serial one-
+   dispatch step (steady scans/s and readback wait beside the pipelined
+   ones), ``warm_start`` on the replay's module, and the first 12 scans
+   through the default step and each other form of it (in-loop deskew, the
+   sort map build,
+   the host map with the two-view transient filter, the asynchronous
+   rebuild, the unfused step), each with an ATE bound and a proof that its
+   path ran; and :func:`checkpoint_round_trip`: a checkpoint after scan 15
+   loaded into a fresh module on the card, its keyframe clouds and pose
+   graph equal to the saved ones, two more scans resumed;
 5. replay the same scans with loop-closure candidates from 3 keyframes
    back (``min_topo_dist_to_consider_loopclosure=3``), so that full-width
    Monte-Carlo batches (10 lanes against a +-3-keyframe submap) run, with
    the counts reset and read around it; check that loop-closure checks ran;
+   then optimize that replay's pose graph (:func:`pgo`, the back-end's
+   Levenberg-Marquardt without and with the Cauchy kernel) and bound its
+   keyframe ATE;
 6. the pairwise-registration path (:func:`pairwise`): the reference
    runner's quickstart configuration (``DEFAULT_CFG``: voxel downsample,
    point-to-point Horn, kNN = 6 point-to-plane) replayed over 40 synthetic
    circle scans of 8192 points, with an ATE bound; bench.py's 64 scan pairs
    of 2048 points as one batch through coarse-to-fine with kNN normals,
-   ``icp_settings_regular`` (kNN = 6 with the scale-outlier gate),
+   ``icp_settings_regular`` (kNN = 6 with the scale-outlier gate), the same
+   with Anderson acceleration (``anderson_m=5``),
    point-to-point Horn and robust Cauchy on pairs with 20 % outliers, each
    with pairs/s, the accepted share and the largest accepted pose error
    against bounds; one GICP align of two 8192-point clouds (K1 at k = 10
@@ -67,7 +82,18 @@ ATE_BOUND_M = 0.5  # scan-rate ATE bound for the replays (metres)
 FLOP_PER_PAIR = 8
 F32_PEAK_FLOPS = 67e12
 N_SCANS = 30  # full-resolution HDL-64 scans in each replay
+VARIANT_SCANS = 12  # scans through each other form of the scan step
+CKPT_SCAN = 15  # scans before the checkpoint
 LC_TOPO = 3  # keyframes back from which the loop-closure phase looks
+# each form of the scan step beside the default, and the proof its path ran
+VARIANTS = (
+    ("default (pipelined)", ()),
+    ("in-loop deskew", ("deskew_in_loop=true",)),
+    ("sort map build", ("local_map_build_mode=sort",)),
+    ("host map, two views", ("local_map_device_build=false", "local_map_min_views=2")),
+    ("asynchronous map rebuild", ("local_map_async_build=true",)),
+    ("unfused step", ("fused_scan_step=false",)),
+)
 # the pairwise-registration phase: the reference runner's quickstart replay
 # (DEFAULT_CFG, synthetic circle, 8192-point scans), bench.py's 64 scan
 # pairs of 2048 points (seed 7) as one batch, one GICP align of 8192 points
@@ -81,8 +107,8 @@ GICP_POINTS = 8192
 # error in m) -- accepted 1.0 / 1.0 / 1.0 / 0.984 with 1e-5, 0.0084,
 # 0.028 and 0.033 m -- and the GICP pose error (2e-6 m)
 QUICK_ATE_BOUND_M = 0.2
-PAIR_BOUNDS = {"c2f": (0.9, 0.001), "regular": (0.9, 0.05), "horn": (0.9, 0.15),
-               "robust": (0.9, 0.15)}
+PAIR_BOUNDS = {"c2f": (0.9, 0.001), "regular": (0.9, 0.05), "anderson": (0.9, 0.05),
+               "horn": (0.9, 0.15), "robust": (0.9, 0.15)}
 GICP_ERR_BOUND_M = 0.001
 
 
@@ -372,7 +398,7 @@ def _span(stats, key):
     return (s["count"], s["mean_s"] * 1e3, s["total_s"]) if s else (0, 0.0, 0.0)
 
 
-def run_phase(device, obs, gt, cfg, label, ate_bound=ATE_BOUND_M):
+def run_phase(device, obs, gt, cfg, label, ate_bound=ATE_BOUND_M, pgo=False):
     """One replay of ``obs`` on ``device`` with the counts reset just before
     and read just after. Returns (result, counts, counts per shape, stats)."""
     import numpy as np
@@ -381,7 +407,7 @@ def run_phase(device, obs, gt, cfg, label, ate_bound=ATE_BOUND_M):
 
     torch.cuda.reset_peak_memory_stats(device)
     _reset_counts()
-    res = run_replay(obs, cfg, gt_poses=gt, device=device)
+    res = run_replay(obs, cfg, gt_poses=gt, device=device, pgo=pgo)
     counts, by_shape = _read_counts()
     peak_mib = torch.cuda.max_memory_allocated(device) / 2**20
     module = res["module"]
@@ -400,8 +426,10 @@ def run_phase(device, obs, gt, cfg, label, ate_bound=ATE_BOUND_M):
         stats = module.profiler.stats()
         _, _, scan_total = _span(stats, "doProcessNewObservation")
         for key in ("doProcessNewObservation", "doProcess.fused_step", "doProcess.generators",
-                    "doProcess.local_map_build", "checkNonAdjacent.nearby_batch_align",
-                    "checkNonAdjacent.lc_batch_align"):
+                    "doProcess.prefetch_ingest", "doProcess.align_dispatch",
+                    "doProcess.readback_wait", "doProcess.filter", "run_one_icp.icp_latest",
+                    "doProcess.local_map_build", "doProcess.local_map_build_async",
+                    "checkNonAdjacent.nearby_batch_align", "checkNonAdjacent.lc_batch_align"):
             n, mean_ms, total = _span(stats, key)
             if n:
                 print(f"  {key}: n={n} mean {mean_ms:.2f} ms total {total:.3f} s"
@@ -432,7 +460,8 @@ def run_phase(device, obs, gt, cfg, label, ate_bound=ATE_BOUND_M):
 
 
 def replay(device, obs, gt):
-    """Phase 4: the port's main path with the preset's nearby window."""
+    """Phase 4: the port's main path (the pipelined scan step) with the
+    preset's nearby window."""
     from mola_fe_lidar_tpu_torch.obs.runner import realtime_config
 
     res, counts, by_shape, stats = run_phase(device, obs, gt, realtime_config(), "replay")
@@ -440,7 +469,147 @@ def replay(device, obs, gt):
         raise AssertionError("no nearby check ran in the replay")
     if not any(b > 1 for shapes in by_shape.values() for b, *_ in shapes):
         raise AssertionError("no batched launch in the replay")
-    return counts, by_shape
+    prefetched = _span(stats, "doProcess.prefetch_ingest")[0]
+    disabled = stats.get("counter:doProcess.prefetch_disabled", {}).get("total", 0)
+    print(f"  pipelined step: {prefetched} of {len(obs)} scans prefetched, "
+          f"prefetch_disabled={disabled}, pipelined_ok={res['module']._pipelined_ok}")
+    # the first scan aligns nothing, the last has nothing to prefetch, and
+    # the warm-up barrier empties the queue once
+    if prefetched < len(obs) - 3 or disabled or not res["module"]._pipelined_ok:
+        raise AssertionError(f"the pipelined step prefetched {prefetched} of {len(obs)} scans "
+                             f"(prefetch_disabled={disabled})")
+    return res, counts, by_shape, stats
+
+
+def _rate(res, stats):
+    """(steady scans/s, mean readback wait ms)."""
+    return res["scans_per_sec_steady"], _span(stats, "doProcess.readback_wait")[1]
+
+
+def scan_step_forms(device, obs, gt, main_res, main_stats):
+    """Phase 4, continued: the serial one-dispatch step over the same scans
+    beside the pipelined one, ``warm_start`` on the replay's module, and the
+    first VARIANT_SCANS scans through the default and each other form of
+    the scan step."""
+    from mola_fe_lidar_tpu_torch.frontend.local_map import LocalMap
+    from mola_fe_lidar_tpu_torch.obs.runner import REALTIME, build_config
+
+    cfg = build_config(overrides=REALTIME + ("pipelined_scan_step=false",))
+    res, _, _, stats = run_phase(device, obs, gt, cfg, "serial replay (pipelined_scan_step=false)")
+    if _span(stats, "doProcess.prefetch_ingest")[0]:
+        raise AssertionError("the serial step prefetched")
+    (p_sps, p_wait), (s_sps, s_wait) = _rate(main_res, main_stats), _rate(res, stats)
+    print(f"serial vs pipelined: steady {s_sps} vs {p_sps} scans/s, readback_wait "
+          f"{s_wait:.2f} vs {p_wait:.2f} ms, prefetched "
+          f"{_span(main_stats, 'doProcess.prefetch_ingest')[0]} of {len(obs)} scans")
+    warm_s = main_res["module"].warm_start(obs[0])
+    print(f"warm_start on the replay's module: {warm_s:.3f} s")
+
+    proofs = {
+        "default (pipelined)": lambda m, st: _span(
+            st, "doProcess.prefetch_ingest")[0] >= VARIANT_SCANS - 3,
+        "in-loop deskew": lambda m, st: st.get(
+            "counter:doProcess.deskew_refine_rounds", {}).get("count", 0) >= 1,
+        "sort map build": lambda m, st: (m._local_map_builder.mode == "sort"
+                                         and _span(st, "doProcess.local_map_build")[0] >= 1),
+        "host map, two views": lambda m, st: isinstance(m._local_map_builder, LocalMap),
+        "asynchronous map rebuild": lambda m, st: _span(
+            st, "doProcess.local_map_build_async")[0] >= 1,
+        "unfused step": lambda m, st: (_span(st, "doProcess.fused_step")[0] == 0
+                                       and _span(st, "run_one_icp.icp_latest")[0] >= 1),
+    }
+    for label, overrides in VARIANTS:
+        cfg = build_config(overrides=REALTIME + overrides)
+        res, _, _, stats = run_phase(device, obs[:VARIANT_SCANS], gt[:VARIANT_SCANS], cfg,
+                                     f"variant: {label} ({', '.join(overrides) or 'realtime'})")
+        if not proofs[label](res["module"], stats):
+            raise AssertionError(f"variant {label}: its path did not run")
+        print(f"variant {label}: steady {res['scans_per_sec_steady']} scans/s, "
+              f"scan ATE {res['ate_rmse_scan']} m")
+
+
+def checkpoint_round_trip(device, obs):
+    """Phase 4, continued: a checkpoint after CKPT_SCAN scans, loaded into a
+    fresh module on the card; its keyframe clouds and pose graph must equal
+    the saved ones, and it resumes two more scans."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mola_fe_lidar_tpu_torch.frontend.checkpoint import load_checkpoint, save_checkpoint
+    from mola_fe_lidar_tpu_torch.frontend.worldmodel import ANNOTATION_NAME_PC_LAYERS
+    from mola_fe_lidar_tpu_torch.obs.runner import build_module, realtime_config
+
+    saved = build_module(realtime_config(), device=device)
+    loaded = build_module(realtime_config(), device=device)
+    try:
+        for o in obs[:CKPT_SCAN]:
+            while saved._pending > saved.params.max_queue_length // 2:
+                time.sleep(0.002)  # lossless, as run_replay feeds
+            saved.on_new_observation(o)
+        if saved.drain() or saved.state.last_obs_tim != obs[CKPT_SCAN - 1]["timestamp"]:
+            raise AssertionError(f"the first {CKPT_SCAN} scans did not all run")
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            save_checkpoint(saved, d)
+            t1 = time.perf_counter()
+            load_checkpoint(loaded, d)
+            t2 = time.perf_counter()
+        kfs = saved.worldmodel.entities()
+        if sorted(loaded.worldmodel.entities()) != sorted(kfs) or len(kfs) < 2:
+            raise AssertionError(f"keyframes {loaded.worldmodel.entities()} after the load, "
+                                 f"{kfs} saved")
+        for kf in kfs:
+            a = saved.worldmodel.annotation(kf, ANNOTATION_NAME_PC_LAYERS)
+            b = loaded.worldmodel.annotation(kf, ANNOTATION_NAME_PC_LAYERS)
+            for name, pc in a.items():
+                if b[name].xyz.device != pc.xyz.device or not (
+                        torch.equal(pc.xyz, b[name].xyz) and torch.equal(pc.mask, b[name].mask)):
+                    raise AssertionError(f"keyframe {kf} layer {name} differs after the load")
+        st, st2 = saved.state_copy(), loaded.state_copy()
+        same_edges = len(st.edge_log) == len(st2.edge_log) and all(
+            (a, b) == (a2, b2) and np.array_equal(R, R2) and np.array_equal(t, t2)
+            for (a, b, R, t), (a2, b2, R2, t2) in zip(st.edge_log, st2.edge_log))
+        if not (same_edges and st.local_pose_graph.nodes == st2.local_pose_graph.nodes
+                and st.local_pose_graph.root == st2.local_pose_graph.root
+                and st.last_kf == st2.last_kf):
+            raise AssertionError("the pose graph differs after the load")
+        for o in obs[CKPT_SCAN:CKPT_SCAN + 2]:
+            loaded.on_new_observation(o)
+        if loaded.drain() or not np.all(np.isfinite(loaded.state.world_t)) \
+                or loaded.state.last_obs_tim != obs[CKPT_SCAN + 1]["timestamp"]:
+            raise AssertionError("the loaded module did not resume")
+        print(f"checkpoint after {CKPT_SCAN} scans: {len(kfs)} keyframe clouds and "
+              f"{len(st.edge_log)} edges equal after the load onto {device}; saved in "
+              f"{1e3 * (t1 - t0):.1f} ms, loaded in {1e3 * (t2 - t1):.1f} ms; resumed 2 scans")
+    finally:
+        saved.shutdown()
+        loaded.shutdown()
+
+
+def pgo(res, obs, gt):
+    """Phase 5, continued: the loop-closure replay's pose graph optimized
+    by the back-end without and with the Cauchy kernel."""
+    import numpy as np
+    from mola_fe_lidar_tpu_torch.obs.metrics import ate_rmse
+    from mola_fe_lidar_tpu_torch.obs.runner import _associate
+
+    backend = res["backend"]
+    kf_ids = sorted(res["kf_poses"])
+    stamps = [backend.keyframes[k].timestamp for k in kf_ids]
+    est, ref = _associate(list(zip(stamps, (res["kf_poses"][k] for k in kf_ids))), obs, gt)
+    ate_graph = ate_rmse(est, ref)
+    for robust in ("none", "cauchy"):
+        t0 = time.perf_counter()
+        poses = backend.optimized_poses(robust=robust)
+        ms = 1e3 * (time.perf_counter() - t0)
+        est, ref = _associate(list(zip(stamps, (poses[k] for k in kf_ids))), obs, gt)
+        ate = ate_rmse(est, ref)
+        finite = all(np.all(np.isfinite(R)) and np.all(np.isfinite(t)) for R, t in poses.values())
+        print(f"PGO robust={robust}: {ms:.1f} ms, {len(poses)} nodes, {len(backend.factors)} "
+              f"edges, ate_rmse_pgo {ate} m, ate_rmse {ate_graph} m (graph estimate)")
+        if not finite or not ate <= ATE_BOUND_M:
+            raise AssertionError(f"PGO robust={robust}: ate_rmse_pgo {ate} m, finite={finite}")
 
 
 def loop_closure(device, obs, gt):
@@ -450,12 +619,14 @@ def loop_closure(device, obs, gt):
 
     cfg = realtime_config()
     cfg["params"]["min_topo_dist_to_consider_loopclosure"] = LC_TOPO
-    res, counts, by_shape, stats = run_phase(device, obs, gt, cfg, "loop-closure replay")
+    res, counts, by_shape, stats = run_phase(device, obs, gt, cfg, "loop-closure replay",
+                                             pgo=True)
     if stats.get("counter:checkNonAdjacent.lc.accepted", {}).get("count", 0) < 1:
         raise AssertionError("no loop-closure check ran")
     lanes = cfg["params"]["loop_closure_montecarlo_samples"]
     if not any(b == lanes for b, *_ in by_shape["nearest_neighbors"]):
         raise AssertionError(f"no {lanes}-lane Monte-Carlo batch was launched")
+    pgo(res, obs, gt)
     return counts, by_shape
 
 
@@ -486,6 +657,7 @@ def pairwise(device):
     lanes; one GICP align of two GICP_POINTS-point clouds (K1 at k = 10).
     Counts are reset just before and read just after each run. Returns
     {(kernel, (B, n, m, k)): (launches, runs, unit)}."""
+    import dataclasses
     import math
 
     import numpy as np
@@ -555,6 +727,9 @@ def pairwise(device):
     runs = (("c2f", "coarse-to-fine with kNN normals", c2f),
             ("regular", "kNN = 6 point-to-plane, icp_settings_regular",
              lambda: align(src, tgt, eye, icp_settings_regular())),
+            ("anderson", "icp_settings_regular with Anderson acceleration (anderson_m=5)",
+             lambda: align(src, tgt, eye,
+                           dataclasses.replace(icp_settings_regular(), anderson_m=5))),
             ("horn", "point-to-point Horn", lambda: align(src, tgt, eye, p2p)),
             ("robust", "robust Cauchy point-to-plane, 20 % outliers",
              lambda: align(src_o, tgt_o, eye, robust)))
@@ -566,7 +741,8 @@ def pairwise(device):
         n_it = res.n_iterations.cpu().numpy()
         print(f"pairs, {label}: {PAIRS / sec:.1f} pairs/s ({1e3 * sec:.1f} ms a batch of "
               f"{PAIRS}), accepted {acc.mean():.3f}, largest accepted error {worst:.5f} m, "
-              f"mean error {errs.mean():.5f} m, iterations {n_it.min()}-{n_it.max()}, "
+              f"mean error {errs.mean():.5f} m, iterations {n_it.min()}-{n_it.max()} "
+              f"(mean {n_it.mean():.2f}), "
               f"launches a batch {({k: v / PAIR_REPS for k, v in counts.items()})}")
         record(by_shape, PAIR_REPS, f"batch ({key})")
         least, largest = PAIR_BOUNDS[key]
@@ -703,7 +879,9 @@ def main() -> int:
     obs, gt = hdl64_sequence(n_scans=N_SCANS, n_azimuth=2048)
     print(f"simulated {N_SCANS} HDL-64 scans ({len(obs[0]['xyz'])} rays each) "
           f"in {time.perf_counter() - t0:.1f} s")
-    counts, by_shape = replay(device, obs, gt)
+    main_res, counts, by_shape, main_stats = replay(device, obs, gt)
+    scan_step_forms(device, obs, gt, main_res, main_stats)
+    checkpoint_round_trip(device, obs)
     lc_counts, lc_by_shape = loop_closure(device, obs, gt)
     launched = {}
     for shapes, unit in ((by_shape, "scan"), (lc_by_shape, "scan (loop-closure phase)")):

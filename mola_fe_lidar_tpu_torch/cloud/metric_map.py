@@ -39,6 +39,17 @@ def _round_capacity(n: int, multiple: int = 256) -> int:
     return max(multiple, -(-n // multiple) * multiple)
 
 
+def host_to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``. To a CUDA device the copy goes through
+    pinned memory without blocking the host: a copy from pageable memory
+    would wait for every launch queued on the stream, and the pipelined
+    scan step ingests the next scan while the current one still runs."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def from_points(points, capacity: Optional[int] = None,
                 attrs: Optional[Dict[str, np.ndarray]] = None,
                 pad_far: float = 1e6, device="cuda") -> PointCloud:
@@ -60,9 +71,8 @@ def from_points(points, capacity: Optional[int] = None,
              else a.reshape(0, a.shape[-1] if a.ndim >= 2 else 1))
         buf = np.zeros((cap, a.shape[1]), dtype=np.float32)
         buf[:k] = a[sel][:k]
-        out_attrs[name] = torch.from_numpy(buf).to(device)
-    return PointCloud(torch.from_numpy(out).to(device),
-                      torch.from_numpy(m).to(device), out_attrs)
+        out_attrs[name] = host_to_device(buf, device)
+    return PointCloud(host_to_device(out, device), host_to_device(m, device), out_attrs)
 
 
 def from_numpy_layers(layers: Dict[str, dict], device="cuda") -> MetricMap:

@@ -175,6 +175,14 @@ def voxel_stats_scan(vs: VoxelSort) -> PointVoxelStats:
     return PointVoxelStats(count, mean, cov)
 
 
+def voxel_first_indices_np(xyz, res: float):
+    """Host-side exact "first point per voxel" dedup -> sorted indices (a
+    copy of the reference's numpy helper; the host ``LocalMap`` uses it)."""
+    cells = np.floor(np.asarray(xyz) / res).astype(np.int64)
+    _, idx = np.unique(cells, axis=0, return_index=True)
+    return np.sort(idx)
+
+
 def hash_subsample_np(idx, cap: int):
     """Deterministic hash-uniform subsample of an index array to ``cap``
     (Knuth multiplicative hash; never an input-order slab)."""

@@ -14,7 +14,7 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 
-from ..cloud.metric_map import MetricMap, PointCloud, from_points
+from ..cloud.metric_map import MetricMap, PointCloud, from_points, host_to_device
 from .base import GENERATOR_REGISTRY
 
 
@@ -46,7 +46,7 @@ class GeneratorRawPoints:
             v = np.asarray(obs["valid"], np.float32)
             pad = pc.mask.shape[0] - v.shape[0]
             v = np.pad(v, (0, pad)) if pad >= 0 else v[: pc.mask.shape[0]]
-            pc = PointCloud(pc.xyz, pc.mask * torch.from_numpy(v).to(self.device), pc.attrs)
+            pc = PointCloud(pc.xyz, pc.mask * host_to_device(v, self.device), pc.attrs)
         if self.min_range > 0.0 or self.max_range > 0.0:
             pc = _range_gate(pc, self.min_range, self.max_range)
         return {self.target_layer: pc}

@@ -2,8 +2,10 @@
 voxel downsampling, decimation, bounding-box crop, voxel eigen-ratio
 edge/plane segmentation (both ``stats_mode``s), per-point normals by kNN or
 by voxel, GICP surface covariances, a fixed point-count cap and motion
-compensation. The self-kNN of the normal and covariance filters is K1
-(``ops/knn_kernel.py``) on CUDA tensors and its plain twin on CPU tensors.
+compensation (``FilterDeskew``, and ``delta_redeskew``, which re-warps
+deskewed layers to another twist for in-loop deskew). The self-kNN of the
+normal and covariance filters is K1 (``ops/knn_kernel.py``) on CUDA tensors
+and its plain twin on CPU tensors.
 
 Everything keeps static shapes: "discarding" points compacts flagged rows
 to the front of a fixed-capacity buffer (:func:`_compact`), and over-
@@ -437,3 +439,28 @@ def _deskew(pc: PointCloud, twist: torch.Tensor, period: float, to_end: bool) ->
     xyz = (poses.R @ pc.xyz[..., None])[..., 0] + poses.t
     xyz = torch.where(pc.mask[:, None] > 0.5, xyz, torch.full_like(xyz, 1e6))
     return PointCloud(xyz, pc.mask, dict(pc.attrs))
+
+
+def delta_redeskew(pc: PointCloud, xi0: torch.Tensor, xi1: torch.Tensor, period: float,
+                   to_end: bool = True) -> PointCloud:
+    """Re-express a cloud deskewed with twist ``xi0`` as if it had been
+    deskewed with ``xi1``, without the raw points: each point gets
+    ``exp(off·T·ξ1) ∘ exp(off·T·ξ0)⁻¹``, ``normal`` rotates by the delta
+    rotation and ``cov`` (row-major ``[..., 9]``) transforms by congruence.
+    The in-loop (two-pass) deskew of the front-end re-warps its filtered
+    layers with it."""
+    t_frac = pc.attrs["time"][..., 0]
+    off = t_frac - 1.0 if to_end else t_frac
+    p1 = se3.exp(off[:, None] * (xi1.to(torch.float32) * period))
+    p0 = se3.exp(off[:, None] * (xi0.to(torch.float32) * period))
+    Rd = p1.R @ p0.R.transpose(-1, -2)
+    td = p1.t - (Rd @ p0.t[..., None])[..., 0]
+    xyz = (Rd @ pc.xyz[..., None])[..., 0] + td
+    xyz = torch.where(pc.mask[:, None] > 0.5, xyz, torch.full_like(xyz, 1e6))
+    attrs = dict(pc.attrs)
+    if "normal" in attrs:
+        attrs["normal"] = (Rd @ attrs["normal"][..., None])[..., 0]
+    if "cov" in attrs:
+        C = attrs["cov"].reshape(-1, 3, 3)
+        attrs["cov"] = (Rd @ C @ Rd.transpose(-1, -2)).reshape(-1, 9)
+    return PointCloud(xyz, pc.mask, attrs)

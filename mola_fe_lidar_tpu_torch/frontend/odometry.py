@@ -3,11 +3,32 @@ of ``mola_fe_lidar_tpu/frontend/odometry.py``).
 
 Per scan (``_process``): time gate -> generators (host -> device ingest)
 -> the scan step (filters with the damped deskew twist, then the coarse-
-to-fine ICP against the rolling local map or the previous scan) -> ONE
-readback of the packed result -> resilience gates (weak map align falls
-back to scan-to-scan; unphysical steps hold the motion model) -> twist and
-odometry bookkeeping -> keyframe decision -> factor emission and the local-
-map rebuild -> the localization advert -> the search for extra edges.
+to-fine ICP against the rolling local map or the previous scan, then,
+with ``deskew_in_loop``, rounds that re-warp the filtered layers with the
+twist the align implies and re-align) -> ONE readback of the packed
+result -> resilience gates (weak map align falls back to scan-to-scan;
+unphysical steps hold the motion model) -> twist and odometry bookkeeping
+-> keyframe decision -> factor emission and the local-map rebuild (inline,
+or on the pool with ``local_map_async_build``) -> the localization advert
+-> the search for extra edges.
+
+The scan step comes in three forms, as in the reference:
+
+* pipelined (``pipelined_scan_step``, the default): the filter (or the
+  output of the previous scan's prefetch), the align, then -- before this
+  scan's result is read back, and before its gates and twist update --
+  the next queued scan's ingest and filter with the damped twist as it
+  stands now (``_prefetch_next``). A prefetch whose timestamp is not the
+  next processed scan's is thrown away. A prefetch that raises disables
+  the pipeline for good (``doProcess.prefetch_disabled``).
+* fused (``pipelined_scan_step: false``): filter and align, one readback.
+* unfused (``fused_scan_step: false``): the filter, a sanity readback,
+  then the align.
+
+On CUDA the result is copied into pinned memory behind an event before the
+prefetch is enqueued, and ingests go through pinned memory without
+blocking, so the next scan's ingest and filter queue behind the align
+instead of waiting for it.
 
 The search (``check_for_nearby_kfs``) walks the local pose graph from the
 newest keyframe. Keyframes in the distance window become nearby-align
@@ -18,14 +39,12 @@ submap around the candidate (``_check_non_adjacent``). Both run on a
 two-worker pool beside the scan thread; accepted results become factors
 and graph edges.
 
-Ported: the fused (non-pipelined) scan step, scan-to-map and scan-to-scan
-odometry, the hash-built ``DeviceLocalMap``, the nearby-keyframe and loop-
-closure search with the keyframe ``WorldModel``, every filter, matcher and
-solver of the reference and its built-in ICP presets (``icp_cases_kitti``
-when no ``icp_settings_*`` is configured). Settings that select anything
-else raise ``NotImplementedError`` from :meth:`LidarOdometry.initialize`,
-naming the ROADMAP item that ports it -- in particular the pipelined scan
-step, in-loop deskew, the sort map build and Anderson acceleration.
+Every setting of the reference's front-end is ported except the device
+meshes (``mesh_data``/``mesh_model``), which raise ``NotImplementedError``
+from :meth:`LidarOdometry.initialize` naming the ROADMAP item that ports
+them. ``precompile_rare_paths`` is accepted and does nothing: the port
+compiles no programs, and :meth:`LidarOdometry.warm_start` builds the CUDA
+kernels and runs every primary program once.
 
 Threads and streams: the pool's jobs launch their kernels on the same CUDA
 stream as the scan step (each thread's current stream is the device's
@@ -41,6 +60,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -49,10 +69,10 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from ..cloud.metric_map import MetricMap, PointCloud
+from ..cloud.metric_map import MetricMap, PointCloud, host_to_device
 from ..filters.base import FilterPipeline
 from ..filters.generators import apply_generators, generators_from_config
-from ..filters.pipeline import FilterDeskew
+from ..filters.pipeline import FilterDeskew, delta_redeskew
 from ..geometry import se3, se3_np
 from ..models.config import AlignKind
 from ..models.icp import (_CAND_KINDS, _CAND_KNN_KINDS, ICPResult, align_pipeline,
@@ -63,7 +83,7 @@ from ..utils.config import DEG2RAD, yaml_get
 from .backend import (AdvertiseLocalization, FactorRelativePose3, HostPose,
                       ProposeKFInput)
 from .icp_config import icp_stages_from_config
-from .local_map import DeviceLocalMap
+from .local_map import DeviceLocalMap, LocalMap
 from .module_base import MODULE_REGISTRY, FrontEndBase, RawObservation
 from .pose_graph import PoseGraph, make_pose_graph
 from .worldmodel import (ANNOTATION_NAME_PC_LAYERS, ANNOTATION_NAME_RENDER_DECORATION,
@@ -138,6 +158,26 @@ def _stack_maps(clouds: List[MetricMap]) -> MetricMap:
             for name, pc in first.items()}
 
 
+class _Readback:
+    """A device vector on its way to the host: on CUDA, a copy into pinned
+    memory behind an event, so launches enqueued after it (the prefetch)
+    do not delay it; :meth:`wait` blocks until it has landed."""
+
+    def __init__(self, x: torch.Tensor):
+        if x.device.type == "cuda":
+            self._buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self._buf.copy_(x, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._buf, self._event = x, None
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._buf.numpy()
+
+
 @dataclass
 class ICPOutput:
     success: bool
@@ -194,6 +234,8 @@ class LidarOdometryParameters:
     viz_decor_pointsize: float = 2.0
     max_queue_length: int = 10
     max_correction_ratio: float = 0.2
+    fused_scan_step: bool = True
+    pipelined_scan_step: bool = True
     # accepted for the reference's configurations: the port compiles
     # nothing ahead of time, so there is nothing to precompile
     precompile_rare_paths: bool = True
@@ -201,11 +243,16 @@ class LidarOdometryParameters:
     deskew_max_accel: float = 10.0
     deskew_max_rot_accel: float = 5.0
     deskew_twist_max_age: int = 5
+    deskew_in_loop: bool = False
+    deskew_refine_iters: int = 10
+    deskew_refine_min_quality: float = 0.3
+    deskew_refine_rounds: int = 2
     odometry_reference: str = "last_scan"
     local_map_keyframes: int = 10
     local_map_capacity_mult: Any = 4
     local_map_dedup_voxel: float = 0.25
     local_map_reseed_after: int = 10
+    local_map_async_build: bool = False
     local_map_min_abs_step_trans: float = 5e-5
     local_map_min_abs_step_rot: float = 1e-5
     local_map_max_match_distance: float = 0.0
@@ -219,6 +266,10 @@ class LidarOdometryParameters:
     local_map_cand_motion_rot: float = 0.0
     local_map_gn_inner: int = 0
     local_map_build_mode: str = "sort"
+    local_map_device_build: bool = True
+    local_map_min_views: int = 1
+    local_map_transient_voxel: float = 0.0
+    local_map_protect_recent: int = 2
     nearby_max_iterations: int = 0
     nearby_cand_knn: bool = False
     nearby_decimate: int = 1
@@ -230,16 +281,8 @@ class LidarOdometryParameters:
 # settings of the reference that select paths this port does not have yet:
 # (key, default, "is ported" test, ROADMAP item)
 _UNPORTED = (
-    ("pipelined_scan_step", True, lambda v: not v,
-     "Queue 1 item 10 (pipelined split scan step)"),
-    ("fused_scan_step", True, bool, "Queue 1 item 10 (unfused scan step)"),
-    ("deskew_in_loop", False, lambda v: not v, "Queue 1 item 5 (in-loop deskew)"),
     ("mesh_data", 1, lambda v: int(v) <= 1, "Queue 1 item 16 (DP/TP meshes)"),
     ("mesh_model", 1, lambda v: int(v) <= 1, "Queue 1 item 16 (DP/TP meshes)"),
-    ("local_map_device_build", True, bool, "Queue 1 item 9 (host LocalMap)"),
-    ("local_map_min_views", 1, lambda v: int(v) <= 1, "Queue 1 item 9 (host LocalMap)"),
-    ("local_map_async_build", False, lambda v: not v,
-     "Queue 1 item 9 (asynchronous map rebuild)"),
 )
 
 
@@ -291,8 +334,18 @@ class LidarOdometry(FrontEndBase):
         # accepted nearby-align goodness: the evidence of the auto LC gate
         self._nearby_goodness = deque(maxlen=64)
         self._last_positive_dt: Optional[float] = None
-        self._local_map_builder: Optional[DeviceLocalMap] = None
+        self._local_map_builder = None  # made at the first keyframe in local_map mode
         self._map_fail_streak = 0
+        # pipelined scan step: the intake-order mirror of the scan queue
+        # (one observation of lookahead), the prefetched (timestamp,
+        # layers, sanity) and the kill switch
+        self._lookahead = deque()
+        self._prefetched = None
+        self._pipelined_ok = True
+        # asynchronous map rebuild: one build in flight, a dirty flag
+        self._map_build_lock = threading.Lock()
+        self._map_build_inflight = False
+        self._map_build_dirty = False
 
     # ------------------------------------------------------------------
     def initialize(self, cfg: Dict[str, Any]) -> None:
@@ -325,13 +378,12 @@ class LidarOdometry(FrontEndBase):
         if p.odometry_reference not in ("last_scan", "local_map"):
             raise ValueError(f"odometry_reference must be last_scan|local_map, "
                              f"got {p.odometry_reference!r}")
+        if p.local_map_build_mode not in ("sort", "hash"):
+            raise ValueError(f"local_map_build_mode must be sort|hash, "
+                             f"got {p.local_map_build_mode!r}")
         for key, default, ported, item in _UNPORTED:
             if not ported(yaml_get(c, key, default=default)):
                 raise NotImplementedError(f"{key}={c[key]!r} is not ported (ROADMAP {item})")
-        if p.odometry_reference == "local_map" and p.local_map_build_mode != "hash":
-            raise NotImplementedError(
-                f"local_map_build_mode={p.local_map_build_mode!r} is not ported "
-                "(ROADMAP Queue 1 item 9: sort map build)")
 
         self.icp_cases = {}
         for key, kind in (("icp_settings_with_vel", AlignKind.LIDAR_ODOMETRY),
@@ -365,6 +417,39 @@ class LidarOdometry(FrontEndBase):
         if self.worldmodel is None:
             self.worldmodel = self.find_service(WorldModel) or WorldModel(device=self.device)
 
+    def reset(self) -> None:
+        """Start over from an empty state (keyframes in the world model
+        stay)."""
+        with self._state_lock:
+            self.state = MethodState()
+            self._local_map_builder = None
+            self._map_fail_streak = 0
+            self._last_positive_dt = None
+            self._prefetched = None
+
+    def state_copy(self) -> MethodState:
+        """A deep snapshot: its own pose graph (rebuilt from the edge log,
+        without pruned nodes), edge log, checked pairs and arrays, so the
+        caller can read it while the pipeline goes on."""
+        with self._state_lock:
+            st = self.state
+            g = make_pose_graph()
+            live = set(st.local_pose_graph.nodes)
+            if st.local_pose_graph.root is not None:
+                g.insert_node(st.local_pose_graph.root)
+            for n in sorted(live):
+                g.insert_node(n)
+            for a, b, R, t in st.edge_log:
+                if a in live and b in live:
+                    g.insert_edge(a, b, R, t)
+            return dataclasses.replace(
+                st, twist=np.array(st.twist), twist_smooth=np.array(st.twist_smooth),
+                world_R=np.array(st.world_R), world_t=np.array(st.world_t),
+                accum_since_last_kf_R=np.array(st.accum_since_last_kf_R),
+                accum_since_last_kf_t=np.array(st.accum_since_last_kf_t),
+                local_pose_graph=g, checked_KF_pairs=set(st.checked_KF_pairs),
+                edge_log=list(st.edge_log), lc_pairs=list(st.lc_pairs))
+
     # ------------------------------------------------------------------
     def on_new_observation(self, obs: RawObservation):
         if self.raw_sensor_label and obs.get("sensor_label") != self.raw_sensor_label:
@@ -378,6 +463,7 @@ class LidarOdometry(FrontEndBase):
                     1.0, "Dropping observation due to pipeline overload (%d queued)", queued)
                 return None
             self._pending += 1
+            self._lookahead.append(obs)
         self.profiler.enter("delay_onNewObs_to_process")
         return self._pipeline_pool.submit(self._process_safe, obs)
 
@@ -404,13 +490,25 @@ class LidarOdometry(FrontEndBase):
         pp = self.params
         tim = float(obs.get("timestamp", 0.0))
         st = self.state
+        # this observation leaves the intake mirror (a direct call that
+        # bypassed the intake is simply not in it)
+        with self._pending_lock:
+            if self._lookahead and self._lookahead[0] is obs:
+                self._lookahead.popleft()
         if st.last_obs_tim is not None and tim - st.last_obs_tim < pp.min_time_between_scans:
             prof.register_user_measure("doProcess.skip_too_soon", 1)
             return
 
-        prof.enter("doProcess.generators")
-        raw_map = apply_generators(self.generators, obs)
-        prof.leave("doProcess.generators")
+        # the previous scan's prefetch of this one: its ingest and filter
+        # are already queued on the device
+        pf, self._prefetched = self._prefetched, None
+        if pf is not None and pf[0] != tim:
+            pf = None  # time-gated or reordered: discard
+        raw_map = None
+        if pf is None:
+            prof.enter("doProcess.generators")
+            raw_map = apply_generators(self.generators, obs)
+            prof.leave("doProcess.generators")
 
         last_points, last_tim = st.last_points, st.last_obs_tim
         icp_out = None
@@ -433,32 +531,25 @@ class LidarOdometry(FrontEndBase):
             else:
                 icp_target = last_points
             # deskew only with the DAMPED twist (see the reference's docs)
-            deskew_twist = (st.twist_smooth if st.twist_smooth_age <= pp.deskew_twist_max_age
-                            else np.zeros(6))
-
-            prof.enter("doProcess.fused_step")
-            this_points, flat = self._scan_step(kind, use_map, raw_map, icp_target,
-                                                gR, gt_, deskew_twist)
-            prof.enter("doProcess.readback_wait")
-            flat = flat.cpu().numpy()  # the single readback
-            prof.leave("doProcess.readback_wait")
-            prof.leave("doProcess.fused_step")
-            if flat[52] < 0.5 or flat[51] < 10.0:
-                prof.register_user_measure("doProcess.drop_insane_scan", 1)
-                self.log.error_throttle(1.0, "Dropping degenerate scan (empty/non-finite)")
-                return
-            icp_out = _unpack_icp_result(flat)
+            deskew_twist = self._deskew_twist()
+            if pp.fused_scan_step:
+                this_points, flat = self._scan_step(obs, raw_map, pf, kind, use_map, icp_target,
+                                                    gR, gt_, deskew_twist, dt)
+                if self._degenerate(flat[51:53]):
+                    return
+                icp_out = _unpack_icp_result(flat)
+            else:
+                this_points = self._filtered(obs, raw_map, pf, deskew_twist)
+                if this_points is None:
+                    return
+                icp_out = self.run_one_icp(this_points, icp_target, gR, gt_,
+                                           stages=self._stages_for(kind, use_map),
+                                           tag="icp_latest")
             icp_out, result_is_world = self._gate(icp_out, use_map, kind, dt,
                                                   this_points, last_points)
         else:
-            prof.enter("doProcess.filter")
-            this_points, sanity = self._filter_core(
-                raw_map, torch.zeros(6, dtype=torch.float32, device=self.device))
-            sanity = sanity.cpu().numpy()
-            prof.leave("doProcess.filter")
-            if sanity[1] < 0.5 or sanity[0] < 10.0:
-                prof.register_user_measure("doProcess.drop_insane_scan", 1)
-                self.log.error_throttle(1.0, "Dropping degenerate scan (empty/non-finite)")
+            this_points = self._filtered(obs, raw_map, pf, np.zeros(6))
+            if this_points is None:
                 return
 
         st.last_points = this_points
@@ -503,6 +594,97 @@ class LidarOdometry(FrontEndBase):
             graph_nonempty = len(st.local_pose_graph) > 0
         if graph_nonempty:
             self.check_for_nearby_kfs()
+
+    def _deskew_twist(self) -> np.ndarray:
+        st = self.state
+        return (st.twist_smooth if st.twist_smooth_age <= self.params.deskew_twist_max_age
+                else np.zeros(6))
+
+    def _filtered(self, obs, raw_map, pf, twist) -> Optional[MetricMap]:
+        """The filter with a sanity readback (the first scan and the
+        unfused step); None, counted, for a degenerate scan."""
+        prof = self.profiler
+        prof.enter("doProcess.filter")
+        if pf is not None:
+            points, sanity = pf[1], pf[2]
+        else:
+            if raw_map is None:
+                raw_map = apply_generators(self.generators, obs)
+            points, sanity = self._filter_core(raw_map, self._on_device(twist))
+        sanity = sanity.cpu().numpy()
+        prof.leave("doProcess.filter")
+        return None if self._degenerate(sanity) else points
+
+    def _degenerate(self, sanity) -> bool:
+        """True, counted and logged, for a scan with fewer than 10 valid
+        points or a non-finite one (``sanity`` = [total, all-finite])."""
+        if sanity[1] < 0.5 or sanity[0] < 10.0:
+            self.profiler.register_user_measure("doProcess.drop_insane_scan", 1)
+            self.log.error_throttle(1.0, "Dropping degenerate scan (empty/non-finite)")
+            return True
+        return False
+
+    def _scan_step(self, obs, raw_map, pf, kind, use_map, target, guess_R, guess_t,
+                   twist, dt):
+        """Filter + align + pack, ending in the scan's one readback: 51
+        result values and the 2 sanity values. Pipelined, the filter may be
+        the prefetch's, and the next queued scan is ingested and filtered
+        behind the align before the readback is awaited."""
+        prof, st = self.profiler, self.state
+        prof.enter("doProcess.fused_step")
+        try:
+            tw = self._on_device(twist)
+            prev = (st.world_R, st.world_t) if use_map else (np.eye(3), np.zeros(3))
+            pipelined = self.params.pipelined_scan_step and self._pipelined_ok
+            if pipelined and pf is not None:
+                mm, sanity = pf[1], pf[2]
+            else:
+                if raw_map is None:  # prefetched, but the pipeline is off now
+                    raw_map = apply_generators(self.generators, obs)
+                mm, sanity = self._filter_core(raw_map, tw)
+            if pipelined:
+                prof.enter("doProcess.align_dispatch")
+            mm, res = self._align_core(kind, use_map, mm, target, guess_R, guess_t, tw,
+                                       prev, dt)
+            host = _Readback(torch.cat([_pack_icp_result(res), sanity]))
+            if pipelined:
+                prof.leave("doProcess.align_dispatch")
+                self._prefetch_next()
+            prof.enter("doProcess.readback_wait")
+            flat = host.wait()  # the single readback
+            prof.leave("doProcess.readback_wait")
+        finally:
+            prof.leave("doProcess.fused_step")
+        return mm, flat
+
+    def _prefetch_next(self) -> None:
+        """Ingest and filter the next queued scan while this scan's align
+        runs, deskewed with the damped twist as it stands now (one scan
+        staler than the serial path). A scan the time gate drops later
+        discards its prefetch. An error disables the pipeline for good:
+        later scans take the fused path, where errors raise."""
+        if not (self.params.pipelined_scan_step and self._pipelined_ok
+                and self.params.fused_scan_step):
+            return
+        with self._pending_lock:
+            nxt = self._lookahead[0] if self._lookahead else None
+        if nxt is None:
+            return
+        tim = float(nxt.get("timestamp", 0.0))
+        prof = self.profiler
+        prof.enter("doProcess.prefetch_ingest")
+        try:
+            raw = apply_generators(self.generators, nxt)
+            mm, sanity = self._filter_core(raw, self._on_device(self._deskew_twist()))
+            self._prefetched = (tim, mm, sanity)
+        except Exception:  # noqa: BLE001 -- speculative work only
+            self._pipelined_ok = False
+            self._prefetched = None
+            prof.register_user_measure("doProcess.prefetch_disabled", 1)
+            self.log.warning("prefetch filter failed; disabling the pipelined scan step",
+                             exc_info=True)
+        finally:
+            prof.leave("doProcess.prefetch_ingest")
 
     def _gate(self, icp_out: ICPOutput, use_map: bool, kind: AlignKind, dt: float,
               this_points: MetricMap, last_points: MetricMap):
@@ -650,16 +832,49 @@ class LidarOdometry(FrontEndBase):
             finite = finite * torch.isfinite(torch.sum(masked)).to(torch.float32)
         return mm, torch.stack([total, finite])
 
-    def _scan_step(self, kind, use_map, raw_map, target, guess_R, guess_t, twist):
-        """Filter + align + pack: the per-scan device work, ending in one
-        f32 vector (51 result values + the 2 sanity values)."""
-        mm, sanity = self._filter_core(raw_map, self._on_device(twist))
-        flat = _packed_align(mm, target, self._on_device(guess_R), self._on_device(guess_t),
-                             self._stages_for(kind, use_map))
-        return mm, torch.cat([flat, sanity])
+    def _deskew_filter(self) -> Optional[FilterDeskew]:
+        return next((f for f in self.filter_pipeline.filters if isinstance(f, FilterDeskew)),
+                    None)
+
+    def _align_core(self, kind, use_map, mm, target, guess_R, guess_t, twist, prev, dt):
+        """The scan's coarse-to-fine align and, with ``deskew_in_loop``,
+        the two-pass rounds: the twist implied by the align (relative to
+        ``prev``, the previous world pose, for a map target), clamped to
+        the physical rates, re-warps the filtered layers
+        (``delta_redeskew``) and a short align re-runs from the last pose.
+        A round whose align is weak or whose ``dt`` is too small keeps the
+        current twist, an identity warp -- selected on the device, never
+        on the host. Returns (layers, ICPResult)."""
+        pp = self.params
+        stages = self._stages_for(kind, use_map)
+        res = align_pipeline(mm, target, se3.Pose(self._on_device(guess_R),
+                                                  self._on_device(guess_t)), stages)
+        dsk = self._deskew_filter()
+        if not (pp.deskew_in_loop and dsk is not None):
+            return mm, res
+        refine = (dataclasses.replace(stages[-1], max_iterations=pp.deskew_refine_iters),)
+        dt_d = self._on_device(np.float32(max(dt, 0.0)))
+        prev_pose = se3.Pose(self._on_device(prev[0]), self._on_device(prev[1]))
+        max_v, max_w = pp.max_sensor_speed, pp.max_sensor_rot_rate
+        xi_cur = twist
+        self.profiler.register_user_measure("doProcess.deskew_refine_rounds",
+                                            pp.deskew_refine_rounds)
+        for _ in range(pp.deskew_refine_rounds):
+            rel = se3.compose(se3.inverse(prev_pose), res.pose) if use_map else res.pose
+            xi = se3.log(rel) / torch.clamp(dt_d, min=1e-3)
+            xi = torch.cat([torch.clamp(xi[:3], -max_v, max_v), torch.clamp(xi[3:], -max_w, max_w)])
+            ok = (res.quality >= pp.deskew_refine_min_quality) & (dt_d > 1e-3) & torch.all(
+                torch.isfinite(xi))
+            xi_new = torch.where(ok, xi, xi_cur)
+            mm = {name: (delta_redeskew(pc, xi_cur, xi_new, dsk.scan_period, dsk.anchor == "end")
+                         if "time" in pc.attrs else pc)
+                  for name, pc in mm.items()}
+            res = align_pipeline(mm, target, res.pose, refine)
+            xi_cur = xi_new
+        return mm, res
 
     def _on_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
+        return host_to_device(np.asarray(x, np.float32), self.device)
 
     # ------------------------------------------------------------------
     def _create_keyframe(self, tim: float, points: MetricMap) -> None:
@@ -717,23 +932,103 @@ class LidarOdometry(FrontEndBase):
             if self._local_map_builder is None:
                 self._local_map_builder = self._make_map_builder()
             self._local_map_builder.add_keyframe(points, (st.world_R, st.world_t))
-            prof.enter("doProcess.local_map_build")
-            st.local_map = self._local_map_builder.build()
-            prof.leave("doProcess.local_map_build")
+            if st.local_map is None or not self.params.local_map_async_build:
+                # the first map must exist before the next scan: inline
+                prof.enter("doProcess.local_map_build")
+                st.local_map = self._local_map_builder.build()
+                prof.leave("doProcess.local_map_build")
+            else:
+                self._schedule_map_build()
 
-    def _make_map_builder(self) -> DeviceLocalMap:
+    def _make_map_builder(self):
         """A rolling-map builder holding every layer a matcher or quality
-        evaluator of the odometry stages targets."""
+        evaluator of the odometry stages targets: on the device, or the
+        host ``LocalMap`` when ``local_map_device_build`` is off or the
+        multi-view transient filter (``local_map_min_views > 1``) is on."""
         keep = set()
         for kind in (AlignKind.LIDAR_ODOMETRY, AlignKind.NEARBY_ALIGN):
             for stage in self.icp_cases.get(kind, ()):
                 keep.update(mt.tgt_layer for mt in stage.matchers)
                 keep.update(q.tgt_layer for q in stage.quality)
         p = self.params
-        return DeviceLocalMap(window=p.local_map_keyframes,
-                              capacity_mult=p.local_map_capacity_mult,
-                              dedup_voxel=p.local_map_dedup_voxel,
-                              keep_layers=keep or None, mode=p.local_map_build_mode)
+        common = dict(window=p.local_map_keyframes, capacity_mult=p.local_map_capacity_mult,
+                      dedup_voxel=p.local_map_dedup_voxel, keep_layers=keep or None)
+        if p.local_map_device_build and p.local_map_min_views <= 1:
+            return DeviceLocalMap(mode=p.local_map_build_mode, **common)
+        return LocalMap(transient_min_views=p.local_map_min_views,
+                        transient_protect_recent=p.local_map_protect_recent,
+                        transient_voxel=p.local_map_transient_voxel or None,
+                        device=self.device, **common)
+
+    def _schedule_map_build(self) -> None:
+        """Rebuild the map on the pool: one build in flight; a keyframe
+        arriving meanwhile marks it dirty and one follow-up build takes a
+        fresh snapshot. ``drain`` counts the build."""
+        with self._map_build_lock:
+            if self._map_build_inflight:
+                self._map_build_dirty = True
+                return
+            self._map_build_inflight = True
+        self._submit(self._map_build_worker, self._local_map_builder)
+
+    def _map_build_worker(self, builder) -> None:
+        prof = self.profiler
+        while True:
+            prof.enter("doProcess.local_map_build_async")
+            try:
+                mm = builder.build(builder.entries())
+                # check and swap in one step under the lock the reseed and
+                # reset paths take, so a stale build cannot bring back a
+                # map that was just dropped
+                with self._state_lock:
+                    if self._local_map_builder is builder:
+                        self.state.local_map = mm
+            except Exception:  # noqa: BLE001 -- the previous map stays
+                self.log.warning("async local-map build failed", exc_info=True)
+            finally:
+                prof.leave("doProcess.local_map_build_async")
+            handoff = None
+            with self._map_build_lock:
+                if self._map_build_dirty:
+                    self._map_build_dirty = False
+                    cur = self._local_map_builder
+                    if cur is builder:
+                        continue  # one more pass with a fresh snapshot
+                    # requested for a builder that replaced this one
+                    # (reseed): hand the slot to a build of the current one
+                    handoff = cur
+                if handoff is None:
+                    self._map_build_inflight = False
+            if handoff is not None:
+                self._submit(self._map_build_worker, handoff)
+            return
+
+    def warm_start(self, obs: RawObservation) -> float:
+        """Make the first scans run at full speed: load (or build) the CUDA
+        kernels, then run the filter, the map build and each primary align
+        kind against each target once on the sample ``obs``; the results
+        are thrown away and the state is untouched. Returns wall seconds."""
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            from ..ops import cuda_build
+            cuda_build.library()
+        raw = apply_generators(self.generators, obs)
+        eye, zero = np.eye(3), np.zeros(3)
+        tw = self._on_device(np.zeros(6))
+        mm, sanity = self._filter_core(raw, tw)
+        sanity.cpu()
+        targets = [(False, mm)]
+        if self.params.odometry_reference == "local_map":
+            b = self._make_map_builder()
+            b.add_keyframe(mm, (eye, zero))
+            targets.append((True, b.build()))
+        for for_map, tgt in targets:
+            for kind in (AlignKind.LIDAR_ODOMETRY, AlignKind.NEARBY_ALIGN):
+                _, res = self._align_core(kind, for_map, mm, tgt, eye, zero, tw, (eye, zero), 0.1)
+                res.quality.cpu()
+        dt = time.monotonic() - t0
+        self.log.info("warm_start: primary paths ready in %.1f s", dt)
+        return dt
 
     # ------------------------------------------------------------------
     # the nearby-keyframe / loop-closure search
@@ -809,7 +1104,8 @@ class LidarOdometry(FrontEndBase):
             prof.leave("checkForNearbyKFs")
 
     def _submit(self, fn, *args) -> None:
-        """Run a check on the pool; ``drain`` counts it until it ends."""
+        """Run a check (or a map build) on the pool; ``drain`` counts it
+        until it ends."""
         with self._pending_lock:
             self._nearby_inflight += 1
         self._nearby_pool.submit(self._run_check, fn, *args)
@@ -1037,17 +1333,16 @@ class LidarOdometry(FrontEndBase):
 
     # ------------------------------------------------------------------
     def drain(self, timeout: float = 600.0) -> int:
-        """Block until queued scans and nearby/LC checks finish; returns the
-        number still in flight at the timeout (also recorded as
+        """Block until queued scans, nearby/LC checks and map builds finish;
+        returns the number still in flight at the timeout (also recorded as
         ``drain.jobs_abandoned``)."""
-        import time as _time
-        t0 = _time.monotonic()
+        t0 = time.monotonic()
         abandoned = 0
-        while _time.monotonic() - t0 < timeout:
+        while time.monotonic() - t0 < timeout:
             with self._pending_lock:
                 if self._pending == 0 and self._nearby_inflight == 0:
                     break
-            _time.sleep(0.005)
+            time.sleep(0.005)
         else:
             with self._pending_lock:
                 abandoned = self._pending + self._nearby_inflight

@@ -9,8 +9,11 @@ Gauss-Newton solver with its weak prior and the closed-form Horn and OLAE
 solvers; the paired-ratio quality with its fixed subsample and its
 symmetric (reverse-direction) form; the candidate cache (top-K refresh
 every ``cand_refresh`` iterations, exact re-argmin over the K candidates in
-between; opt-in for the kNN matchers with ``cand_k >= knn``) and the plain
-loop. Anderson acceleration is not ported. Nearest-neighbour searches
+between; opt-in for the kNN matchers with ``cand_k >= knn``), the plain
+loop and its Anderson-accelerated form (``anderson_m``: type-II Anderson
+extrapolation on the SE(3) chart at the initial pose, with the reference's
+revert and reset rules; incompatible with candidate caches, as in the
+reference). Nearest-neighbour searches
 go through the hand-written kernels (``ops/knn_kernel.py`` K1,
 ``ops/nn_kernel.py`` K2), which take their plain twins for CPU tensors:
 every ``nn_backend`` of the reference except ``"grid"`` is the same exact
@@ -98,9 +101,6 @@ def check_params(params: ICPParams) -> None:
     if params.solver.kind != "gauss_newton" and not any(
             m.kind == "point2point" for m in params.matchers):
         raise ValueError(f"{params.solver.kind} solver needs at least one point2point matcher")
-    if params.anderson_m > 0:
-        raise NotImplementedError(
-            "Anderson acceleration is not ported (ROADMAP Queue 1 item 12)")
     if params.cand_refresh_min_trans > 0 or params.cand_refresh_min_rot > 0:
         raise NotImplementedError(
             "motion-conditional candidate refresh is not ported (ROADMAP "
@@ -387,6 +387,78 @@ def _freeze(active, new_pose: se3.Pose, pose: se3.Pose) -> se3.Pose:
                     torch.where(active[..., None], new_pose.t, pose.t))
 
 
+class _Anderson(NamedTuple):
+    """Per-lane Anderson history: the last ``m + 1`` Picard residuals
+    ``f`` and images ``g`` on the chart (newest last), the valid count, the
+    best residual norm since the last reset, the plain Picard image to fall
+    back to, and whether the current iterate was extrapolated."""
+    Fh: torch.Tensor
+    Gh: torch.Tensor
+    cnt: torch.Tensor
+    best: torch.Tensor
+    g_fb: torch.Tensor
+    was_aa: torch.Tensor
+
+    @classmethod
+    def empty(cls, lanes, m: int, dev) -> "_Anderson":
+        z = torch.zeros((*lanes, m + 1, 6), dtype=torch.float32, device=dev)
+        return cls(z, z.clone(), torch.zeros(lanes, dtype=torch.int64, device=dev),
+                   torch.full(lanes, float("inf"), device=dev),
+                   torch.zeros((*lanes, 6), device=dev),
+                   torch.zeros(lanes, dtype=torch.bool, device=dev))
+
+
+def _anderson(h: _Anderson, pose: se3.Pose, new_pose: se3.Pose, converged, init_pose,
+              params: ICPParams):
+    """The reference's ``body_anderson`` after its Picard step ``pose ->
+    new_pose``: type-II Anderson extrapolation (AA-ICP) over the history's
+    differences, the ``m x m`` normal equations solved by ``solve_ex`` (no
+    host read). An extrapolated iterate whose residual blows past
+    ``anderson_reset_ratio`` x the best (or goes non-finite) is reverted to
+    the stored Picard image and the history resets; a plain iterate that
+    blows up only resets it. No extrapolation outside the rotation basin
+    of the chart (|rotation| >= pi/2). Returns (pose, converged, history)."""
+    m = params.anderson_m
+    inv0 = se3.inverse(init_pose)
+    x = se3.log(se3.compose(pose, inv0))
+    g = se3.log(se3.compose(new_pose, inv0))
+    f = g - x
+    fnorm = torch.linalg.vector_norm(f, dim=-1)
+    blown = (h.cnt > 0) & ((fnorm > params.anderson_reset_ratio * h.best)
+                           | ~torch.isfinite(fnorm))
+    # only an extrapolated iterate is reverted; its f and g describe the
+    # rejected point and stay out of the history
+    revert = blown & h.was_aa
+    cnt = torch.where(blown, torch.zeros_like(h.cnt), h.cnt)
+    best = torch.where(blown, torch.full_like(h.best, float("inf")), torch.minimum(h.best, fnorm))
+    keep = revert[..., None, None]
+    Fh = torch.where(keep, h.Fh, torch.cat([h.Fh[..., 1:, :], f[..., None, :]], dim=-2))
+    Gh = torch.where(keep, h.Gh, torch.cat([h.Gh[..., 1:, :], g[..., None, :]], dim=-2))
+    cnt = torch.clamp(cnt + (~revert).to(cnt.dtype), max=m + 1)
+    dF = Fh[..., 1:, :] - Fh[..., :-1, :]
+    dG = Gh[..., 1:, :] - Gh[..., :-1, :]
+    valid = (torch.arange(m, device=f.device) >= (m - (cnt[..., None] - 1))).to(f.dtype)
+    A = dF * valid[..., None]  # stale rows zeroed
+    M = A @ A.transpose(-1, -2)
+    lam = 1e-10 + 1e-8 * torch.diagonal(M, dim1=-2, dim2=-1).sum(-1) / m
+    M = M + lam[..., None, None] * torch.eye(m, dtype=f.dtype, device=f.device)
+    gamma = torch.linalg.solve_ex(M, (A @ f[..., None]))[0][..., 0]
+    x_acc = g - (gamma[..., None, :] @ (dG * valid[..., None]))[..., 0, :]
+    in_basin = torch.linalg.vector_norm(x[..., 3:], dim=-1) < (np.pi / 2)
+    use_aa = ((cnt >= 2) & torch.all(torch.isfinite(x_acc), dim=-1) & in_basin
+              & ~converged & ~revert)
+    new_x = torch.where(revert[..., None], h.g_fb,
+                        torch.where(use_aa[..., None], x_acc, g))
+    out = se3.compose(se3.exp(new_x), init_pose)
+    g_fb = torch.where(revert[..., None], h.g_fb, g)
+    return out, converged & ~revert, _Anderson(Fh, Gh, cnt, best, g_fb, use_aa)
+
+
+def _freeze_history(active, new: _Anderson, old: _Anderson) -> _Anderson:
+    return _Anderson(*(torch.where(active.reshape(active.shape + (1,) * (a.dim() - active.dim())),
+                                   a, b) for a, b in zip(new, old)))
+
+
 def _lift(mm: MetricMap, batch: int) -> MetricMap:
     """Every layer with a leading lane axis: one-cloud layers become
     stride-0 expands shared by all lanes."""
@@ -415,6 +487,10 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
         src_map, tgt_map = _lift(src_map, lanes[0]), _lift(tgt_map, lanes[0])
     elig = tuple(i for i, m in enumerate(params.matchers) if _cand_eligible(m))
     uses_cands = bool(elig)
+    if params.anderson_m > 0 and uses_cands:
+        raise ValueError(
+            "anderson_m is incompatible with candidate-cached matchers (cand_k > 0): "
+            "the cache's block loop already amortizes the per-iteration cost")
     block = max(1, params.cand_refresh) if uses_cands else _PLAIN_BLOCK
     prior_w = _prior_weights(params, dev)
 
@@ -431,6 +507,7 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
     pose = init_pose
     it = torch.zeros(lanes, dtype=torch.int32, device=dev)
     done = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    hist = _Anderson.empty(lanes, params.anderson_m, dev) if params.anderson_m > 0 else None
     finished = params.max_iterations <= 0
     while not finished:
         cands = None
@@ -443,6 +520,10 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
         for _ in range(block):
             active = ~done & (it < params.max_iterations)
             new_pose, converged = step(pose, it, cands)
+            if hist is not None:
+                new_pose, converged, new_hist = _anderson(hist, pose, new_pose, converged,
+                                                          init_pose, params)
+                hist = _freeze_history(active, new_hist, hist)
             pose = _freeze(active, new_pose, pose)
             done = done | (active & converged)
             it = it + active.to(torch.int32)

@@ -1,15 +1,17 @@
 """Dataset replay runner (port of ``mola_fe_lidar_tpu/obs/runner.py``).
 
 Builds the front-end by registry name, replays a dataset through it on a
-chosen device and reports the trajectory metrics.
+chosen device and reports the trajectory metrics; ``--pgo`` also optimizes
+the keyframe pose graph (``OptimizingBackend``) and reports ``*_pgo``
+metrics, and ``--out`` writes the keyframe trajectory in TUM format.
 
     python -m mola_fe_lidar_tpu_torch.obs.runner --dataset synthetic --scans 20
     python -m mola_fe_lidar_tpu_torch.obs.runner --dataset kitti --sequence 00 \
-        --kitti-root /data/kitti --device cuda
+        --kitti-root /data/kitti --device cuda --pgo --out traj.txt
 
 Without ``--config`` the runner uses :func:`realtime_config`: the KITTI
 preset at the realtime operating point with the preset's nearby-keyframe
-and loop-closure search, which is the configuration the port implements.
+and loop-closure search.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..frontend import odometry as _odometry  # noqa: F401 -- registers LidarOdometry
-from ..frontend.backend import InMemoryBackend
+from ..frontend.backend import OptimizingBackend
 from ..frontend.module_base import MODULE_REGISTRY
 from ..utils.config import load_yaml
 from .metrics import ate_rmse, kitti_segment_errors, rpe_rmse
@@ -33,8 +35,7 @@ from .metrics import ate_rmse, kitti_segment_errors, rpe_rmse
 PARAMS_DIR = Path(__file__).resolve().parent.parent / "params"
 
 # The realtime operating point (scripts/run_accuracy.py REALTIME in the
-# reference repository) plus what the port needs on top: the one-dispatch
-# scan step (the pipelined split step is not ported).
+# reference repository).
 REALTIME = (
     "local_map_max_match_distance=0.75",
     "local_map_min_abs_step_trans=0.001",
@@ -48,13 +49,12 @@ REALTIME = (
     "nearby_max_iterations=10",
     "pointcloud_filter.1.params.stats_mode=scan",
 )
-SLICE = ("pipelined_scan_step=false",)
 
 # The reference runner's configuration for a replay without --config, a
 # copy of ``mola_fe_lidar_tpu/obs/runner.py::DEFAULT_CFG`` (held equal by
 # tests/test_torch_copies.py): a 0.7 m voxel downsample to 8192 points, a
-# wide point-to-point Horn stage, then kNN = 6 point-to-plane. The port runs
-# it through :func:`default_config`.
+# wide point-to-point Horn stage, then kNN = 6 point-to-plane
+# (:func:`default_config`).
 DEFAULT_CFG = {"params": {
     "min_time_between_scans": 0.01,
     "min_dist_xyz_between_keyframes": 3.0,
@@ -117,10 +117,9 @@ def _apply_overrides(p: dict, overrides) -> None:
 
 
 def default_config(overrides=()) -> dict:
-    """:data:`DEFAULT_CFG` as the port runs it (with :data:`SLICE`), plus
-    ``key.path=json`` overrides."""
+    """:data:`DEFAULT_CFG` plus ``key.path=json`` overrides."""
     cfg = copy.deepcopy(DEFAULT_CFG)
-    _apply_overrides(cfg["params"], SLICE + tuple(overrides))
+    _apply_overrides(cfg["params"], overrides)
     return cfg
 
 
@@ -152,16 +151,16 @@ def build_config(deskew: bool = True, scale: float = 1.0, local_map: bool = True
 
 
 def realtime_config(scale: float = 1.0) -> dict:
-    """The configuration of the port's main path: KITTI preset, deskew,
-    scan-to-local-map, realtime levers, the preset's nearby/LC window."""
-    return build_config(deskew=True, scale=scale, local_map=True,
-                        overrides=REALTIME + SLICE)
+    """The configuration of the main path: KITTI preset, deskew,
+    scan-to-local-map, realtime levers, the preset's nearby/LC window --
+    the reference accuracy harness's ``realtime`` configuration."""
+    return build_config(deskew=True, scale=scale, local_map=True, overrides=REALTIME)
 
 
 def build_module(cfg: Optional[dict], backend=None, device="cuda"):
     cfg = cfg or realtime_config()
     module = MODULE_REGISTRY.get(cfg.get("module", "LidarOdometry"))(device=device)
-    module.slam_backend = backend if backend is not None else InMemoryBackend()
+    module.slam_backend = backend if backend is not None else OptimizingBackend(device=device)
     module.initialize(cfg)
     return module
 
@@ -217,19 +216,25 @@ def _associate(items, observations, gt_poses):
 
 
 def run_replay(observations, cfg: Optional[dict] = None, gt_poses=None,
-               device="cuda"):
-    """Replay ``observations`` through the front-end on ``device`` (lossless:
-    the feed is throttled instead of tripping the overload drop). The first
-    ``min(25, n/5)`` scans are a warm-up; ``scans_per_sec_steady`` times
-    the rest."""
-    backend = InMemoryBackend()
+               device="cuda", realtime: bool = False, pgo: bool = False,
+               pgo_robust: str = "none", warm_start: bool = False):
+    """Replay ``observations`` through the front-end on ``device``. The feed
+    is lossless (throttled instead of tripping the overload drop) unless
+    ``realtime``, which feeds a scan every 10 ms. The first ``min(25, n/5)``
+    scans are a warm-up; ``scans_per_sec_steady`` times the rest.
+    ``warm_start`` runs :meth:`LidarOdometry.warm_start` on the first
+    observation before the clock starts (``warm_s``). ``pgo`` optimizes
+    the recorded pose graph (robust kernel ``pgo_robust`` on non-odometry
+    edges) and adds the ``*_pgo`` metrics."""
+    backend = OptimizingBackend(device=device)
     module = build_module(cfg, backend=backend, device=device)
+    warm_s = module.warm_start(observations[0]) if warm_start and observations else None
     n_total = len(observations)
     warmup = min(25, n_total // 5)
     t0 = time.perf_counter()
     t_steady = None
     for n_fed, obs in enumerate(observations):
-        while True:
+        while not realtime:
             with module._pending_lock:
                 if module._pending <= module.params.max_queue_length // 2:
                     break
@@ -242,6 +247,8 @@ def run_replay(observations, cfg: Optional[dict] = None, gt_poses=None,
                 time.sleep(0.002)
             t_steady = time.perf_counter()
         module.on_new_observation(obs)
+        if realtime:
+            time.sleep(0.01)
     jobs_abandoned = module.drain()
     backend.flush()  # the last scans' calls may still sit in its queue
     t_end = time.perf_counter()
@@ -249,6 +256,7 @@ def run_replay(observations, cfg: Optional[dict] = None, gt_poses=None,
               if t_steady is not None and n_total > warmup else None)
 
     kf_poses = estimated_trajectory(module)
+    kf_pgo = backend.optimized_poses(robust=pgo_robust) if pgo and backend.factors else None
     n_nearby, n_lc = non_adjacent_edges(module)
     result = {
         "n_scans": n_total,
@@ -260,10 +268,13 @@ def run_replay(observations, cfg: Optional[dict] = None, gt_poses=None,
         "jobs_abandoned": jobs_abandoned,
         "scans_per_sec_steady": steady,
         "wall_to_steady_s": (t_steady - t0) if t_steady is not None else None,
+        "warm_s": warm_s,
         "kf_poses": kf_poses,
         "backend": backend,
         "module": module,
     }
+    if kf_pgo:
+        result["kf_poses_pgo"] = kf_pgo
     if gt_poses is not None and backend.keyframes and kf_poses:
         kf_ids = sorted(kf_poses)
         est, gt = _associate([(backend.keyframes[k].timestamp, kf_poses[k]) for k in kf_ids],
@@ -283,7 +294,47 @@ def run_replay(observations, cfg: Optional[dict] = None, gt_poses=None,
                 result["kitti_r_rel_deg_per_m"] = r_rel
                 result["kitti_segments"] = nseg
         result["scan_poses"] = scan_traj
+        if kf_pgo:
+            # the same evaluations over the optimized keyframe poses
+            est, gt = _associate([(backend.keyframes[k].timestamp, kf_pgo[k])
+                                  for k in kf_ids if k in kf_pgo], observations, gt_poses)
+            if len(gt) >= 3:
+                result["ate_rmse_pgo"] = ate_rmse(est, gt)
+            est, gt = _associate(per_scan_trajectory(backend, kf_pgo), observations, gt_poses)
+            if len(gt) >= 3:
+                result["ate_rmse_scan_pgo"] = ate_rmse(est, gt)
+                t_rel, _, nseg = kitti_segment_errors(est, gt)
+                if nseg:
+                    result["kitti_t_rel_pct_pgo"] = t_rel
     return result
+
+
+def _rot_to_quat(R):
+    """(x, y, z, w) by Shepperd's method (the largest pivot), stable near
+    180 degrees."""
+    t = R[0, 0] + R[1, 1] + R[2, 2]
+    if t > max(R[0, 0], R[1, 1], R[2, 2]):
+        s = 2.0 * np.sqrt(1.0 + t)
+        return (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s, 0.25 * s
+    if R[0, 0] >= R[1, 1] and R[0, 0] >= R[2, 2]:
+        s = 2.0 * np.sqrt(max(0.0, 1.0 + R[0, 0] - R[1, 1] - R[2, 2]))
+        return 0.25 * s, (R[0, 1] + R[1, 0]) / s, (R[0, 2] + R[2, 0]) / s, (R[2, 1] - R[1, 2]) / s
+    if R[1, 1] >= R[2, 2]:
+        s = 2.0 * np.sqrt(max(0.0, 1.0 + R[1, 1] - R[0, 0] - R[2, 2]))
+        return (R[0, 1] + R[1, 0]) / s, 0.25 * s, (R[1, 2] + R[2, 1]) / s, (R[0, 2] - R[2, 0]) / s
+    s = 2.0 * np.sqrt(max(0.0, 1.0 + R[2, 2] - R[0, 0] - R[1, 1]))
+    return (R[0, 2] + R[2, 0]) / s, (R[1, 2] + R[2, 1]) / s, 0.25 * s, (R[1, 0] - R[0, 1]) / s
+
+
+def save_trajectory_tum(path: str, kf_poses, backend) -> None:
+    """Keyframe poses in TUM format: ``timestamp tx ty tz qx qy qz qw``."""
+    with open(path, "w") as f:
+        for k in sorted(kf_poses):
+            R, t = kf_poses[k]
+            ts = backend.keyframes[k].timestamp if k in backend.keyframes else float(k)
+            qx, qy, qz, qw = _rot_to_quat(R)
+            f.write(f"{ts:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+                    f"{qx:.6f} {qy:.6f} {qz:.6f} {qw:.6f}\n")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -300,6 +351,12 @@ def parser() -> argparse.ArgumentParser:
                     help="loop/circle size; 0 = auto-size so step ~= 1 m")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (default cuda; cpu runs the plain twins)")
+    ap.add_argument("--out", type=str, default=None,
+                    help="write the keyframe trajectory (TUM format; optimized with --pgo)")
+    ap.add_argument("--pgo", action="store_true",
+                    help="optimize the keyframe pose graph and report *_pgo metrics")
+    ap.add_argument("--pgo-robust", choices=["none", "huber", "cauchy"], default="none",
+                    help="IRLS kernel on non-odometry edges during --pgo")
     return ap
 
 
@@ -319,14 +376,19 @@ def main(argv=None) -> int:
                                     max_scans=args.scans or None)
         observations = list(seq)
         gt = seq.gt_poses_velo
-    res = run_replay(observations, cfg, gt_poses=gt, device=args.device)
+    res = run_replay(observations, cfg, gt_poses=gt, device=args.device, pgo=args.pgo,
+                     pgo_robust=args.pgo_robust)
     res["module"].shutdown()
     summary = {k: v for k, v in res.items()
                if k in ("n_scans", "n_keyframes", "n_factors", "n_nearby_edges",
                         "n_loop_closures", "wall_s", "jobs_abandoned",
-                        "ate_rmse", "ate_rmse_scan", "scans_per_sec_steady")}
+                        "ate_rmse", "ate_rmse_scan", "ate_rmse_pgo", "ate_rmse_scan_pgo",
+                        "scans_per_sec_steady")}
     summary["device"] = args.device
     print(json.dumps(summary, indent=2, default=float))
+    if args.out:
+        save_trajectory_tum(args.out, res.get("kf_poses_pgo") or res["kf_poses"], res["backend"])
+        print(f"trajectory written to {args.out}")
     return 0
 
 

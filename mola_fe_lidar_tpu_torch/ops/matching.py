@@ -38,10 +38,13 @@ class NNResult(NamedTuple):
 
 
 def _sq_dists(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
-    dx = src[:, None, 0] - tgt[None, :, 0]
-    dy = src[:, None, 1] - tgt[None, :, 1]
-    dz = src[:, None, 2] - tgt[None, :, 2]
-    return dx * dx + dy * dy + dz * dz
+    """``dx*dx + dy*dy + dz*dz`` in that order, in place (two buffers)."""
+    d2 = src[:, None, 0] - tgt[None, :, 0]
+    d2.mul_(d2)
+    tmp = src[:, None, 1] - tgt[None, :, 1]
+    d2.add_(tmp.mul_(tmp))
+    torch.sub(src[:, None, 2], tgt[None, :, 2], out=tmp)
+    return d2.add_(tmp.mul_(tmp))
 
 
 def _prepare(src, src_mask, tgt, tgt_mask):

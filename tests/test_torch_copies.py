@@ -188,10 +188,7 @@ def test_default_cfg_copy_is_the_reference():
     from mola_fe_lidar_tpu_torch.obs import runner
 
     assert runner.DEFAULT_CFG == jrunner.DEFAULT_CFG
-    cfg = runner.default_config()
-    assert cfg["params"]["pipelined_scan_step"] is False
-    assert {k: v for k, v in cfg["params"].items() if k != "pipelined_scan_step"} == \
-        jrunner.DEFAULT_CFG["params"]
+    assert runner.default_config() == jrunner.DEFAULT_CFG
 
 
 def _bench():

@@ -89,16 +89,17 @@ def test_align_pipeline_matches_reference(setup, for_map):
 def test_unported_stage_settings_raise(setup):
     port = setup[0]
     stage = port._stages_for(AlignKind.LIDAR_ODOMETRY, False)[0]
-    bad = [dataclasses.replace(stage, anderson_m=3),
-           dataclasses.replace(stage, cand_refresh_min_trans=0.05),
+    bad = [dataclasses.replace(stage, cand_refresh_min_trans=0.05),
            dataclasses.replace(stage, shard_axis="model"),
            dataclasses.replace(stage, matchers=(dataclasses.replace(
                stage.matchers[0], nn_backend="grid"),))]
     for params in bad:
         with pytest.raises(NotImplementedError):
             icp.check_params(params)
-    # ported since: point-to-point matching with the closed-form solvers;
-    # like the reference, those solvers need a point-to-point matcher
+    # ported since: Anderson acceleration, point-to-point matching with the
+    # closed-form solvers; like the reference, those solvers need a
+    # point-to-point matcher
+    icp.check_params(dataclasses.replace(stage, anderson_m=3))
     p2p = dataclasses.replace(stage.matchers[0], kind="point2point")
     for kind in ("horn", "olae"):
         solver = dataclasses.replace(stage.solver, kind=kind)

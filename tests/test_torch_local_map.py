@@ -112,5 +112,10 @@ def test_ring_over_the_window_matches_reference(rng):
 
 
 def test_sort_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        local_map.DeviceLocalMap(mode="sort")
+    """The builder's modes are "sort" and "hash"; another raises ValueError
+    as in the reference (the sort build itself is held to the reference in
+    tests/test_torch_map_builds.py)."""
+    assert local_map.DeviceLocalMap(mode="sort").mode == "sort"
+    for lib in (local_map, jlm):
+        with pytest.raises(ValueError):
+            lib.DeviceLocalMap(mode="grid")

@@ -1,7 +1,8 @@
 """Port parity for the slice as a whole: an HDL-64 replay through both
 packages' ``run_replay`` with the realtime KITTI configuration scaled to
 azimuth 256 (16,384 rays), plus the port's standalone import (no JAX, no
-reference package) and its refusal of settings it has not ported.
+reference package), its refusal of the settings it has not ported and its
+acceptance of those it has.
 
 Replay tolerance: 5 mm / 1 mrad per scan pose (measured agreement on this
 sequence is ~0.1 mm / 0.2 mrad), with equal keyframe and factor counts.
@@ -18,6 +19,8 @@ packages take the same Monte-Carlo guesses (made here with numpy; torch
 cannot reproduce ``jax.random``), and each module finishes every scan and
 every check it started before the next scan is fed, with one pool worker,
 so which checks run and which edges they see does not depend on timing.
+(That feed also leaves the pipelined step nothing queued to prefetch; the
+prefetch itself is held to the reference in ``test_torch_pipelined.py``.)
 """
 
 import importlib.util
@@ -68,7 +71,7 @@ def _run_accuracy():
 def _reference_config(scale, extra=()):
     ra = _run_accuracy()
     return ra.build_cfg(deskew=True, scale=scale, local_map=True,
-                        overrides=ra.REALTIME + runner.SLICE + tuple(extra))
+                        overrides=ra.REALTIME + tuple(extra))
 
 
 @pytest.mark.parametrize("scale", [1.0, AZIMUTH / 2048])
@@ -144,7 +147,7 @@ def test_replay_matches_reference(monkeypatch):
     _serial(monkeypatch, jodometry.LidarOdometry)
     obs, gt = hdl64.hdl64_sequence(n_scans=SCANS, n_azimuth=AZIMUTH)
     cfg = runner.build_config(scale=AZIMUTH / 2048, overrides=(
-        runner.REALTIME + runner.SLICE + REPLAY_OVERRIDES))
+        runner.REALTIME + REPLAY_OVERRIDES))
     assert cfg == _reference_config(AZIMUTH / 2048, REPLAY_OVERRIDES)
     # the reference spends most of its run compiling; replay both at once
     # (precompile_rare_paths only schedules more reference compiles)
@@ -257,29 +260,31 @@ def test_port_runs_with_jax_and_the_reference_blocked():
                    "pair_finite": True, "loaded": []}
 
 
-@pytest.mark.parametrize("override", [
-    "pipelined_scan_step=true",
-    "fused_scan_step=false",
-    "deskew_in_loop=true",
-    "local_map_build_mode=sort",
-    "local_map_async_build=true",
-    "local_map_min_views=2",
-    "mesh_data=2",
+@pytest.mark.parametrize("override, item", [
+    ("mesh_data=2", "item 16"),
+    ("local_map_cand_motion_trans=0.05", "item 14"),
+    ("local_map_nn_backend=grid", "item 17"),
 ])
-def test_unported_settings_raise(override):
-    cfg = runner.build_config(overrides=runner.REALTIME + runner.SLICE + (override,))
-    with pytest.raises(NotImplementedError):
+def test_unported_settings_raise(override, item):
+    cfg = runner.build_config(overrides=runner.REALTIME + (override,))
+    with pytest.raises(NotImplementedError, match=item):
         runner.build_module(cfg, device="cpu").shutdown()
 
 
 @pytest.mark.parametrize("override, first_filter", [
     ("decimate_to_point_count=4096", "FilterDecimateToCount"),
     ("pointcloud_filter.1.params.stats_mode=segment", "FilterDeskew"),
+    ("fused_scan_step=false", "FilterDeskew"),
+    ("deskew_in_loop=true", "FilterDeskew"),
+    ("local_map_build_mode=sort", "FilterDeskew"),
+    ("local_map_min_views=2,local_map_async_build=true", "FilterDeskew"),
 ])
 def test_settings_ported_since_build(override, first_filter):
-    cfg = runner.build_config(overrides=runner.REALTIME + runner.SLICE + (override,))
+    cfg = runner.build_config(overrides=runner.REALTIME + tuple(override.split(",")))
     module = runner.build_module(cfg, device="cpu")
     try:
         assert type(module.filter_pipeline.filters[0]).__name__ == first_filter
+        if "min_views" in override:  # the host builder
+            assert type(module._make_map_builder()).__name__ == "LocalMap"
     finally:
         module.shutdown()

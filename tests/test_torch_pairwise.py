@@ -329,7 +329,7 @@ def test_default_cfg_replay_matches_reference():
     obs, gt = obs[:REPLAY_SCANS], gt[:REPLAY_SCANS]
     cfg = runner.default_config(REPLAY_CAPACITY)
     jcfg = copy.deepcopy(jrunner.DEFAULT_CFG)
-    runner._apply_overrides(jcfg["params"], runner.SLICE + REPLAY_CAPACITY)
+    runner._apply_overrides(jcfg["params"], REPLAY_CAPACITY)
     assert cfg == jcfg
     with ThreadPoolExecutor(1) as pool:
         ref_future = pool.submit(jrunner.run_replay, obs, jcfg, gt)
