@@ -11,6 +11,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    instantiation (a spill fails the run);
 3. hold each kernel (K1 ``knn``, K2 ``nearest_neighbors``) bit for bit
    against its plain PyTorch twin on the card, at the main path's shapes,
+   at K1's other list lengths (``NEW_KS``: lengths routed to a longer
+   compiled one and the shared-memory lists 32, 64, 128) at 2048 x 8192,
    at edge cases and at every compiled launch plan; per main-path shape,
    print its launch plan (blocks, cluster, R, and the warps on the busiest
    SM from the runtime's occupancy query) and time it: ``ms`` (CUDA events over 20 eager
@@ -32,9 +34,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    through the default step and each other form of it (in-loop deskew, the
    sort map build,
    the host map with the two-view transient filter, the asynchronous
-   rebuild, the unfused step), each with an ATE bound and a proof that its
-   path ran; and :func:`checkpoint_round_trip`: a checkpoint after scan 15
-   loaded into a fresh module on the card, its keyframe clouds and pose
+   rebuild, the unfused step, the motion-conditional candidate refresh),
+   each with an ATE bound and a proof that its path ran; and
+   :func:`checkpoint_round_trip`: a checkpoint after scan 15 loaded into a
+   fresh module on the card, its keyframe clouds and pose
    graph equal to the saved ones, two more scans resumed;
 5. replay the same scans with loop-closure candidates from 3 keyframes
    back (``min_topo_dist_to_consider_loopclosure=3``), so that full-width
@@ -54,11 +57,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with pairs/s, the accepted share and the largest accepted pose error
    against bounds; one GICP align of two 8192-point clouds (K1 at k = 10
    for the covariances), with a pose-error bound;
-7. hold every batched shape those phases launched (``launches_by_shape``
-   keys with B > 1) bit for bit against the twin and against B unbatched
-   launches, once with every operand per lane and once with the target and
-   the source mask shared by all lanes (stride-0 expands), and time it as
-   in phase 3 (the bound counts B * n * m pairs).
+7. the map localizer (:func:`localizer`): a 131,072-point map of the
+   replay's keyframes, four gated localize queries (the multi-start
+   rival-basin gate: a 10-lane probe batch against the shared map), each
+   timed, at least 2 accepted and every accepted one within 0.5 m; an
+   adversarial query from 6 m off, which must be rejected; ``localize_raw``
+   against 32,768- and 131,072-point maps, timed;
+8. hold every batched shape those phases launched (``launches_by_shape``
+   keys with B > 1), and the localizer's unbatched searches, bit for bit
+   against the twin and a batch against B unbatched launches, once with
+   every operand per lane and once with the target and the source mask
+   shared by all lanes (stride-0 expands), and time it as in phase 3 (the
+   bound counts B * n * m pairs).
 
 The second-to-last line is ``{"kernels": [...]}`` (one row per kernel at
 its largest main-path shape, with every shape, batched ones included,
@@ -93,6 +103,8 @@ VARIANTS = (
     ("host map, two views", ("local_map_device_build=false", "local_map_min_views=2")),
     ("asynchronous map rebuild", ("local_map_async_build=true",)),
     ("unfused step", ("fused_scan_step=false",)),
+    ("motion-conditional refresh", ("local_map_cand_motion_trans=0.02",
+                                    "local_map_cand_motion_rot=0.004")),
 )
 # the pairwise-registration phase: the reference runner's quickstart replay
 # (DEFAULT_CFG, synthetic circle, 8192-point scans), bench.py's 64 scan
@@ -110,6 +122,16 @@ QUICK_ATE_BOUND_M = 0.2
 PAIR_BOUNDS = {"c2f": (0.9, 0.001), "regular": (0.9, 0.05), "anderson": (0.9, 0.05),
                "horn": (0.9, 0.15), "robust": (0.9, 0.15)}
 GICP_ERR_BOUND_M = 0.001
+# the localizer phase (scripts/bench_localize_tp.py's recipe): keyframes
+# every 4 scans, four held-out queries from a prior of 0.5 m / 2 degrees
+# (seed 11), each timed over LOC_REPS calls after a warm one; at least 2
+# accepted, each within LOC_ERR_BOUND_M; the adversarial query from 6 m
+LOC_KF_EVERY = 4
+LOC_QUERIES = (2, 10, 18, 26)
+LOC_SEED = 11
+LOC_REPS = 3
+LOC_ERR_BOUND_M = 0.5
+LOC_ADVERSARIAL_M = 6.0
 
 
 def fail(msg: str) -> int:
@@ -198,7 +220,9 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             t = re.search(r"knn_searchILi(\d+)ELi(\d+)E", m.group(1))
-            current = f"K={t.group(1)} R={t.group(2)}" if t else m.group(1)
+            sh = re.search(r"knn_search_sharedILi(\d+)E", m.group(1))
+            current = (f"K={t.group(1)} R={t.group(2)}" if t
+                       else f"K={sh.group(1)} R=1 shared" if sh else m.group(1))
         elif line.startswith("== "):
             current = line[3:]
         elif current and "spill" in line:
@@ -222,14 +246,25 @@ def tie_cloud(gen, n: int, extent: int, device):
     return xyz.to(device).contiguous(), mask.to(device).contiguous()
 
 
+#: K1's list lengths beyond the main path's, each held to the twin at
+#: 2048 x 8192 and in the edge cases (fewer valid targets than k)
+NEW_KS = (2, 3, 7, 9, 12, 17, 32, 33, 64, 100, 128)
+#: beside every compiled list length, the plan battery checks a length
+#: routed to a register list (3 -> 4) and one routed to a shared-memory
+#: list (100 -> 128)
+PLAN_ROUTED_KS = (3, 100)
+
+
 def check_plans(device, ks=None) -> int:
     """Every compiled R at every cluster size and two staging budgets,
     forced through ``knn_kernel.launch``, and the wrappers with their own
     plans, bit for bit against the twins: tie-heavy clouds with n not a
     multiple of any tile, m below one part and m = 1, all targets masked,
-    and a staging budget small enough to stream a part in chunks. ``ks``:
-    the list lengths to check (default: all). Returns the number of forced
-    launches checked."""
+    and a staging budget small enough to stream a part in chunks. A routed
+    length launches its compiled one and keeps the first k columns. ``ks``:
+    the list lengths to check (default: every compiled one and
+    ``PLAN_ROUTED_KS``). Returns the number of
+    forced launches checked."""
     import torch
     from mola_fe_lidar_tpu_torch.ops import knn_kernel, matching, nn_kernel
 
@@ -244,23 +279,27 @@ def check_plans(device, ks=None) -> int:
     checked = 0
     for label, t, tm in clouds:
         n, m = s.shape[0], t.shape[0]
-        for k in ks or knn_kernel.SUPPORTED_K:
+        for k in ks or knn_kernel.COMPILED_K + PLAN_ROUTED_KS:
+            kc = knn_kernel.compiled_k(k)
             want = matching.knn(s, sm, t, tm, k)
-            wants = [((n, k), want, knn_kernel.knn(s, sm, t, tm, k))]
+            wants = [((n, kc), want, knn_kernel.knn(s, sm, t, tm, k))]
             if k == 1:  # K2's own entry point as well
                 want1 = matching.nearest_neighbors(s, sm, t, tm)
                 wants.append(((n,), want1, nn_kernel.nearest_neighbors(s, sm, t, tm)))
             for dims, want, wrapped in wants:
                 if not compare(wrapped, want)[1]:
                     raise AssertionError(f"{label}: k={k} wrapper {dims} disagrees with the twin")
-                for r in knn_kernel.ROWS:
+                for r in knn_kernel.rows_for(k):
                     for c in knn_kernel.CLUSTERS:
                         for stage in (knn_kernel.STAGE_TARGETS, 64):
                             plan = knn_kernel.make_plan(n, m, k, r, c, stage)
                             dist = torch.full(dims, -1.0, device=device)
                             idx = torch.full(dims, -1, dtype=torch.int32, device=device)
-                            knn_kernel.launch(s, sm, t, tm, k, plan, dist, idx)
+                            knn_kernel.launch(s, sm, t, tm, kc if len(dims) > 1 else 1,
+                                              plan, dist, idx)
                             torch.cuda.synchronize()
+                            if len(dims) > 1:
+                                dist, idx = dist[:, :k], idx[:, :k]
                             if not (torch.equal(dist, want.dist) and torch.equal(idx, want.idx)):
                                 raise AssertionError(
                                     f"{label}: k={k} {dims} {plan} disagrees with the twin")
@@ -287,7 +326,8 @@ def check_kernels(device):
         ("nn", 1, 8192, 8192, "scan-to-scan point-to-plane"),
         ("knn", 6, 8192, 8192, "point2plane_knn pairing (quickstart replay)"),
         ("knn", 10, 8192, 8192, "GICP covariances (self-kNN)"),
-    ]
+    ] + [("knn", k, 2048, 8192, f"list length {k} (runs at {knn_kernel.compiled_k(k)})")
+         for k in NEW_KS]
     per_kernel = {"knn": [], "nn": []}
     for kind, k, n, m, what in main_shapes:
         src, sm = make_cloud(gen, n, 0.95, device)
@@ -310,7 +350,8 @@ def check_kernels(device):
         torch.cuda.synchronize()
         err, same = compare(out_k, out_p)
         plan = knn_kernel.cached_plan(device, n, m, k)
-        clusters = lib.mola_knn_max_active_clusters(k, plan.rows, plan.cluster, plan.smem)
+        clusters = lib.mola_knn_max_active_clusters(knn_kernel.compiled_k(k), plan.rows,
+                                                    plan.cluster, plan.smem)
         per_sm = max(1, clusters * plan.cluster // sms) if clusters > 0 else 0
         warps = 4 * min(-(-plan.blocks // sms), per_sm)
         row = {"kind": kind, "n": n, "m": m, "k": k, "use": what, "max_abs_err": err,
@@ -341,7 +382,7 @@ def check_kernels(device):
         tgt, tm = make_cloud(gen, m, 0.7, device)
         tm[0] = 1.0
         tgt[0] = torch.tensor([1.0, 2.0, 3.0], device=device)
-        for k in knn_kernel.SUPPORTED_K:
+        for k in sorted(set(knn_kernel.COMPILED_K + NEW_KS)):
             edge.append(("knn", k, src, sm, tgt, tm))
         edge.append(("nn", 1, src, sm, tgt, tm))
     dup = torch.tensor([[0.1, 0.0, 0.0]] * 6 + [[9.0, 9.0, 9.0]] * 20, device=device)
@@ -492,6 +533,7 @@ def scan_step_forms(device, obs, gt, main_res, main_stats):
     first VARIANT_SCANS scans through the default and each other form of
     the scan step."""
     from mola_fe_lidar_tpu_torch.frontend.local_map import LocalMap
+    from mola_fe_lidar_tpu_torch.models.config import AlignKind
     from mola_fe_lidar_tpu_torch.obs.runner import REALTIME, build_config
 
     cfg = build_config(overrides=REALTIME + ("pipelined_scan_step=false",))
@@ -517,6 +559,8 @@ def scan_step_forms(device, obs, gt, main_res, main_stats):
             st, "doProcess.local_map_build_async")[0] >= 1,
         "unfused step": lambda m, st: (_span(st, "doProcess.fused_step")[0] == 0
                                        and _span(st, "run_one_icp.icp_latest")[0] >= 1),
+        "motion-conditional refresh": lambda m, st: all(
+            s.cand_refresh_min_trans == 0.02 for s in m._stages_for(AlignKind.LIDAR_ODOMETRY, True)),
     }
     for label, overrides in VARIANTS:
         cfg = build_config(overrides=REALTIME + overrides)
@@ -780,17 +824,175 @@ def pairwise(device):
     return shapes
 
 
-def check_batched(device, shape_counts):
-    """Phase 7: every batched shape the replays and the pairwise phase
-    launched. ``shape_counts``: {(kernel name, (B, n, m, k)): (launches,
-    scans or batches, unit)}. Returns the rows per kernel."""
+def localizer_scene(device, obs, gt):
+    """The localizer phase's inputs (``scripts/bench_localize_tp.py``'s):
+    (keyframes every LOC_KF_EVERY scans as (layers, ground-truth pose), the
+    query layers of scan i, the valid points of scan i). A keyframe is the
+    full raw cloud plus the ``edges`` layer of ``FilterEdgesPlanes``; a
+    query is the cloud deduplicated in 0.5 m voxels into 4096 points, plus
+    its edges."""
+    from mola_fe_lidar_tpu_torch.cloud.metric_map import from_points
+    from mola_fe_lidar_tpu_torch.cloud.voxel import voxel_first_indices_np
+    from mola_fe_lidar_tpu_torch.filters.pipeline import FilterEdgesPlanes
+
+    edge_filter = FilterEdgesPlanes(voxel_filter_resolution=1.0, edges_capacity=2048,
+                                    stats_mode="scan")
+
+    def points(i):
+        return obs[i]["xyz"][obs[i]["valid"] > 0]
+
+    def with_edges(pts):
+        raw = from_points(pts, capacity=1 << 17, device=device)
+        return {"raw": raw, "edges": edge_filter({"raw": raw})["edges"]}
+
+    def query(i):
+        pts = points(i)
+        return {"raw": from_points(pts[voxel_first_indices_np(pts, 0.5)], capacity=4096,
+                                   device=device),
+                "edges": with_edges(pts)["edges"]}
+
+    return ([(with_edges(points(i)), gt[i]) for i in range(0, len(obs), LOC_KF_EVERY)],
+            query, points)
+
+
+def localizer(device, obs, gt):
+    """Phase 7: the map localizer (``frontend/localizer.py``) on the
+    replay's simulated scans, as ``scripts/bench_localize_tp.py`` runs the
+    JAX package's: keyframes every LOC_KF_EVERY scans (full raw cloud plus
+    an ``edges`` layer) at their ground-truth poses in a 2^17-point map;
+    the queries LOC_QUERIES (0.5 m voxel dedup into 4096 points, with
+    edges) from perturbed inits, each timed; an adversarial query from
+    LOC_ADVERSARIAL_M to the side with a 3 m probe sigma, which must be
+    rejected; ``localize_raw`` against 32,768- and 131,072-point maps.
+    Counts are reset just before and read just after. Returns the
+    launches of one gated localize and of one ``localize_raw`` by shape,
+    {(kernel, (B, n, m, k)): (launches, 1, unit)}, and the phase's counts."""
+    import numpy as np
+    import torch
+    from mola_fe_lidar_tpu_torch.cloud.metric_map import from_points
+    from mola_fe_lidar_tpu_torch.cloud.voxel import voxel_first_indices_np
+    from mola_fe_lidar_tpu_torch.frontend.localizer import MapLocalizer
+    from mola_fe_lidar_tpu_torch.geometry import se3, se3_np
+
+    t_phase = time.perf_counter()
+    _reset_counts()
+    items, query, points = localizer_scene(device, obs, gt)
+
+    def pose_f32(R, t):
+        return se3.Pose(np.asarray(R, np.float32), np.asarray(t, np.float32))
+
+    def trans_err(R, t, true):
+        """|translation of pose (R, t) composed with the inverse of true|"""
+        return float(np.linalg.norm(np.asarray(R, np.float64) @ se3_np.inverse(true)[1] + t))
+
+    kw = dict(map_capacity=1 << 17, voxel_size=0.5, agree_tol_m=1.5, device=device)
+    loc = MapLocalizer(start_sigma_xyz=1.0, **kw)
+    t0 = time.perf_counter()
+    loc.build(items)
+    map_pts = int(loc.map_cloud.count())
+    edge_pts = int(loc._map["map_edges"].count())
+    print(f"localizer map: {len(items)} keyframes, {map_pts} points in {loc.map_capacity}, "
+          f"{edge_pts} edge points in {loc._map['map_edges'].capacity}, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def per_call(fn, unit):
+        """fn's result and its launches by shape: {(kernel, key): (n, 1, unit)}."""
+        before = _read_counts()[1]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {(name, key): (c - before[name].get(key, 0), 1, unit)
+                     for name, shapes in _read_counts()[1].items() for key, c in shapes.items()
+                     if c > before[name].get(key, 0)}
+
+    rng = np.random.default_rng(LOC_SEED)
+    per_localize = None
+    accepted_errs, n_acc = [], 0
+    for i in LOC_QUERIES:
+        scan, true = query(i), (np.asarray(gt[i][0]), np.asarray(gt[i][1]))
+        # the bench's prior: 0.5 m translation, 2 degrees of yaw
+        dt = rng.normal(0, 0.5, 3)
+        dyaw = rng.normal(0, np.deg2rad(2.0))
+        init = pose_f32(*se3_np.compose(true, se3_np.exp(np.array([*dt, 0, 0, dyaw]))))
+        res, counted = per_call(lambda: loc.localize(scan, init), "localize")  # warm
+        per_localize = per_localize or counted
+        times = []
+        for _ in range(LOC_REPS):
+            t0 = time.perf_counter()
+            res = loc.localize(scan, init)  # one read of the base, one of the probes
+            times.append(time.perf_counter() - t0)
+        err = trans_err(*res.pose, true)
+        print(f"localize scan {i}: {1e3 * sorted(times)[LOC_REPS // 2]:.1f} ms (median of "
+              f"{LOC_REPS}), quality {res.quality:.4f}, {res.n_iterations} iterations, "
+              f"trans_err {err:.4f} m, init off by {np.linalg.norm(dt):.3f} m, accepted "
+              f"{res.accepted} {res.reject_reason!r}, n_agree {res.n_agree}, n_compete "
+              f"{res.n_compete} of {res.n_starts}, rival quality {res.rival_quality:.4f}, "
+              f"dispersion {res.dispersion_m:.3f} m")
+        if res.accepted:
+            n_acc += 1
+            accepted_errs.append(err)
+    if n_acc < 2 or any(e > LOC_ERR_BOUND_M for e in accepted_errs):
+        raise AssertionError(f"localizer: {n_acc} of {len(LOC_QUERIES)} accepted, accepted "
+                             f"errors {accepted_errs} (bound {LOC_ERR_BOUND_M} m)")
+
+    i = LOC_QUERIES[0]
+    true = (np.asarray(gt[i][0]), np.asarray(gt[i][1]))
+    init = pose_f32(*se3_np.compose(true, se3_np.exp(np.array([0.0, LOC_ADVERSARIAL_M, 0, 0, 0, 0]))))
+    wide = MapLocalizer(start_sigma_xyz=3.0, **kw)
+    wide.build(items)
+    res = wide.localize(query(i), init)
+    print(f"adversarial: scan {i} from {LOC_ADVERSARIAL_M} m to the side (probe sigma 3 m): "
+          f"accepted {res.accepted} {res.reject_reason!r}, quality {res.quality:.4f}, "
+          f"trans_err {trans_err(*res.pose, true):.4f} m, n_agree {res.n_agree}, n_compete "
+          f"{res.n_compete}, rival quality {res.rival_quality:.4f}")
+    if res.accepted:
+        raise AssertionError("the adversarial localize query was accepted")
+
+    pts = points(i)
+    scan = {"raw": from_points(pts[voxel_first_indices_np(pts, 0.5)], capacity=4096,
+                               device=device)}
+    shapes = dict(per_localize)
+    for cap in (1 << 15, 1 << 17):
+        anchor = MapLocalizer(map_capacity=cap, voxel_size=0.5, device=device)
+        anchor.build([({"raw": loc.map_cloud}, (np.eye(3), np.zeros(3)))])
+        init = pose_f32(*true)
+        _, counted = per_call(lambda: anchor.localize_raw(scan, init), "localize_raw")  # warm
+        for key, val in counted.items():
+            shapes.setdefault(key, val)
+        times = []
+        for _ in range(LOC_REPS):
+            t0 = time.perf_counter()
+            res = anchor.localize_raw(scan, init)
+            res.quality.cpu()
+            times.append(time.perf_counter() - t0)
+        print(f"localize_raw against {int(anchor.map_cloud.count())} points (capacity {cap}) "
+              f"from the true pose: {1e3 * sorted(times)[LOC_REPS // 2]:.1f} ms, "
+              f"{int(res.n_iterations)} iterations, quality {float(res.quality):.4f}, trans_err "
+              f"{trans_err(res.pose.R.cpu().numpy(), res.pose.t.cpu().numpy(), true):.4f} m")
+    counts, _ = _read_counts()
+    print(f"  launch counts (phase): {counts}; one gated localize, one localize_raw:")
+    for (name, (b, n, m, k)), (c, _, unit) in sorted(shapes.items()):
+        print(f"    {name} B={b} {n}x{m} k={k}: {c} launches a {unit}")
+    for name, c in counts.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the localizer phase")
+    if not any(b == loc.multi_start - 1 for (_, (b, *_)) in per_localize):
+        raise AssertionError("no probe batch was launched")
+    print(f"localizer phase: {time.perf_counter() - t_phase:.1f} s")
+    return shapes, counts
+
+
+def check_batched(device, shape_counts, unbatched=frozenset()):
+    """Phase 8: every batched shape the replays, the pairwise phase and
+    the localizer launched, and the unbatched shapes in ``unbatched``.
+    ``shape_counts``: {(kernel name, (B, n, m, k)): (launches, scans or
+    batches, unit)}. Returns the rows per kernel."""
     import torch
     from mola_fe_lidar_tpu_torch.ops import knn_kernel, matching, nn_kernel
 
     gen = torch.Generator().manual_seed(2)
     rows = {"knn": [], "nearest_neighbors": []}
     for (name, (b, n, m, k)), (launched, per, unit) in sorted(shape_counts.items()):
-        if b == 1:
+        if b == 1 and (name, (b, n, m, k)) not in unbatched:
             continue
         lanes = [make_cloud(gen, n, 0.95, device) for _ in range(b)]
         src = torch.stack([x for x, _ in lanes])
@@ -803,16 +1005,21 @@ def check_batched(device, shape_counts):
             plain = lambda *a: matching.knn(*a, k)
         else:
             kern, plain = nn_kernel.nearest_neighbors, matching.nearest_neighbors
-        shared = (src, sm[:1].expand_as(sm), tgt[:1].expand_as(tgt), tm[:1].expand_as(tm))
+        if b == 1:  # one unbatched search
+            shared = (src[0], sm[0], tgt[0], tm[0])
+            variants = (shared,)
+        else:
+            shared = (src, sm[:1].expand_as(sm), tgt[:1].expand_as(tgt), tm[:1].expand_as(tm))
+            variants = ((src, sm, tgt, tm), shared)
         err = 0.0
-        for args in ((src, sm, tgt, tm), shared):
+        for args in variants:
             got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
             e, same = compare(got, want)
             err = max(err, e)
             if not same:
                 raise AssertionError(f"{name} B={b} {n}x{m} k={k} is not bit-identical to its twin")
-            for lane in range(b):
+            for lane in range(b if b > 1 else 0):
                 one = kern(*(x[lane].contiguous() for x in args))
                 if not (torch.equal(one.idx, got.idx[lane]) and torch.equal(one.dist, got.dist[lane])):
                     raise AssertionError(f"{name} B={b} {n}x{m} k={k}: lane {lane} differs from "
@@ -828,7 +1035,7 @@ def check_batched(device, shape_counts):
                 s_, t_, compute_mode="donot_use_mm_for_euclid_dist").min(dim=-1)
         call = lambda: kern(*shared)
         row = {"kind": "knn" if name == "knn" else "nn", "B": b, "n": n, "m": m, "k": k,
-               "use": "batched (nearby / loop closure)", "max_abs_err": err,
+               "use": unit, "max_abs_err": err,
                "ms": cuda_ms(call, reps=20), "graph_ms": graph_ms(call),
                "host_us": host_us(call),
                "bound_ms": b * n * m * FLOP_PER_PAIR / F32_PEAK_FLOPS * 1e3,
@@ -836,8 +1043,9 @@ def check_batched(device, shape_counts):
                "plain_ms": cuda_ms(lambda: plain(*shared), reps=3, warmup=1),
                "launches": launched, "per": unit, "launches_per": launched / per}
         row["bound_share"] = row["bound_ms"] / row["ms"]
-        print(f"{name} B={b} k={k} {n}x{m}: bit-identical per lane (own and shared operands, "
-              f"twin and {b} unbatched launches); kernel {row['ms']:.4f} ms, graph "
+        print(f"{name} B={b} k={k} {n}x{m}: bit-identical "
+              + ("to the twin" if b == 1 else f"per lane (own and shared operands, twin and "
+                 f"{b} unbatched launches)") + f"; kernel {row['ms']:.4f} ms, graph "
               f"{row['graph_ms']:.4f} ms, host {row['host_us']:.1f} us, bound "
               f"{row['bound_ms']:.4f} ms ({100 * row['bound_share']:.1f} %), library "
               f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
@@ -854,6 +1062,7 @@ def main() -> int:
         return fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     sys.path.insert(0, str(REPO))
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -890,15 +1099,22 @@ def main() -> int:
                 launched.setdefault((name, key), (c, N_SCANS, unit))
     for key, val in pairwise(device).items():
         launched.setdefault(key, val)
-    batched_rows = check_batched(device, launched)
+    loc_shapes, loc_counts = localizer(device, obs, gt)
+    for key, val in loc_shapes.items():
+        launched.setdefault(key, val)
+    # the localizer's unbatched searches against the 32k and 131k maps
+    batched_rows = check_batched(device, launched, unbatched={
+        key for key in loc_shapes if key[1][0] == 1 and key[1][2] >= 1 << 15})
     for row in rows:
         row["launches"] = counts[row["name"]]
         row["launches_lc_phase"] = lc_counts[row["name"]]
+        row["launches_localizer_phase"] = loc_counts[row["name"]]
         for shape in row["shapes"]:
             c, per, unit = launched.get(
                 (row["name"], (1, shape["n"], shape["m"], shape["k"])), (0, N_SCANS, "scan"))
             shape.update(launches=c, per=unit, launches_per=c / per)
         row["shapes"] += batched_rows[row["name"]]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,6 +75,12 @@ def from_points(points, capacity: Optional[int] = None,
     return PointCloud(host_to_device(out, device), host_to_device(m, device), out_attrs)
 
 
+def to_numpy(cloud: PointCloud) -> np.ndarray:
+    """The valid points as a host ``f32[n,3]`` array."""
+    xyz = cloud.xyz.detach().cpu().numpy()
+    return xyz[cloud.mask.detach().cpu().numpy() > 0.5]
+
+
 def from_numpy_layers(layers: Dict[str, dict], device="cuda") -> MetricMap:
     """``{layer: {"xyz", "mask", "attrs": {name: array}}}`` (numpy, e.g. a
     reference MetricMap read back to the host) -> tensors on ``device``."""

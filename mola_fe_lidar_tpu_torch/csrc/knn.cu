@@ -1,14 +1,15 @@
 // K1: exact k-NN, the counterpart of mola_fe_lidar_tpu/ops/pallas_knn.py
-// (_knn_kernel, wrapper pallas_knn). The kernel and its design notes are in
-// knn_common.cuh; this file holds the C entry points for k in
-// {1, 4, 5, 6, 8, 10, 16}, each at the sources-per-thread counts R in
-// ops/knn_kernel.py::ROWS. Bound to Python by ops/knn_kernel.py through
-// ctypes.
+// (_knn_kernel, wrapper pallas_knn). The kernels and their design notes are
+// in knn_common.cuh; this file holds the C entry points for the list lengths
+// k in {1, 4, 5, 6, 8, 10, 16} (lists in registers, each at the sources-per-
+// thread counts R in ops/knn_kernel.py::ROWS) and {32, 64, 128} (lists in
+// shared memory, R = 1). ops/knn_kernel.py runs every other k <= 128 at the
+// next of these and binds them to Python through ctypes.
 #include "knn_common.cuh"
 
 #define MOLA_KNN_CASES(X) \
   X(1, 1) X(1, 2) X(4, 1) X(4, 2) X(5, 1) X(5, 2) X(6, 1) X(6, 2) X(8, 1) X(8, 2) \
-  X(10, 1) X(10, 2) X(16, 1) X(16, 2)
+  X(10, 1) X(10, 2) X(16, 1) X(16, 2) X(32, 1) X(64, 1) X(128, 1)
 
 extern "C" {
 

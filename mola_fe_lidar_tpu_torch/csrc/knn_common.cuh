@@ -73,6 +73,19 @@
 //     order with strict '<' insertion (equal distances keep the lower index),
 //     applies the sentinel rules and writes sqrt(d2).
 //
+// Lists longer than kMaxRegisterK would spill from registers. For those
+// (K1 at k = 32, 64, 128; ops/knn_kernel.py routes every other k <= 128 to
+// the next compiled length and keeps its first k columns) knn_search_shared
+// keeps each source's list in shared memory, in the merge layout, with the
+// same parts, clusters, staging and tie order but R = 1 and no step scan:
+// each lane computes every target of its warp's part and inserts the few
+// that beat its K-th entry by shifting the list (insertions are rare after
+// the list fills: about K (1 + ln(part / K)) per part for targets in random
+// order). The merge is a K-way merge of the parts' sorted lists, heads in
+// shared memory. It is the simple form, not a tuned one: a warp stalls on
+// its lanes' insertions, and at K = 128 one block fills an SM's shared
+// memory.
+//
 // The kernel launches on the caller's stream and allocates nothing; the C
 // entry points return cudaGetLastError(). Everything here has internal
 // linkage, so knn.cu and nn.cu may both instantiate K = 1 in one library.
@@ -87,6 +100,7 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 128;
+constexpr int kMaxRegisterK = 16;  // longer lists live in shared memory
 constexpr int kWarps = kThreads / 32;  // one target part a warp
 constexpr int kStepAlign = 8;  // part and chunk lengths: multiples of every U
 constexpr int kMaxCluster = 8;
@@ -156,10 +170,12 @@ __host__ __device__ constexpr int step_len() {
 }
 
 __host__ __device__ constexpr int smem_bytes(int k, int rows, int chunk) {
-  // staged targets (x, y, z and mask), and the lists aliased over them
-  // after the scan
-  return kWarps * chunk * 16 > kThreads * rows * k * 8 ? kWarps * chunk * 16
-                                                       : kThreads * rows * k * 8;
+  // staged targets (x, y, z and mask), and the lists: aliased over them
+  // after the scan when they live in registers during it, beside them when
+  // they live in shared memory
+  return k > kMaxRegisterK ? kWarps * chunk * 16 + kThreads * rows * k * 8
+         : kWarps * chunk * 16 > kThreads * rows * k * 8 ? kWarps * chunk * 16
+                                                         : kThreads * rows * k * 8;
 }
 
 template <int K, int R>
@@ -385,6 +401,156 @@ knn_search(const float* __restrict__ src, const float* __restrict__ src_mask,
   cluster.sync();  // no block leaves while another still reads its lists
 }
 
+// The search with its lists in shared memory, for K > kMaxRegisterK and R = 1
+// (the plan and the arguments are knn_search's).
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+knn_search_shared(const float* __restrict__ src, const float* __restrict__ src_mask,
+                  const float* __restrict__ tgt, const float* __restrict__ tgt_mask,
+                  int n, int m, int part_len, int chunk, long long src_ls,
+                  long long src_mask_ls, long long tgt_ls, long long tgt_mask_ls,
+                  float* __restrict__ out_dist, int* __restrict__ out_idx) {
+  extern __shared__ float4 smem[];
+  const long long lane = blockIdx.z;
+  src += lane * src_ls;
+  src_mask += lane * src_mask_ls;
+  tgt += lane * tgt_ls;
+  tgt_mask += lane * tgt_mask_ls;
+  out_dist += lane * n * K;
+  out_idx += lane * n * K;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int w = threadIdx.x / 32;
+  const int g = threadIdx.x % 32;
+  const int tile0 = blockIdx.y * 32;
+
+  // each warp's lists, [warp][slot][tile source], then the staged chunk:
+  // each warp's part's triples, then each warp's part's masks
+  float* const part_d2 = reinterpret_cast<float*>(smem);
+  int* const part_idx = reinterpret_cast<int*>(part_d2 + kWarps * K * 32);
+  float* const sxyz = reinterpret_cast<float*>(part_idx + kWarps * K * 32);
+  float* const smask = sxyz + kWarps * 3 * chunk;
+  float* const ld = part_d2 + w * K * 32 + g;  // this lane's list: slot q at q * 32
+  int* const li = part_idx + w * K * 32 + g;
+  for (int q = 0; q < K; ++q) {
+    ld[q * 32] = kBig;
+    li[q * 32] = 0;
+  }
+  float sx = 0.f, sy = 0.f, sz = 0.f;
+  if (tile0 + g < n && src_mask[tile0 + g] > 0.5f) {
+    sx = src[3 * (tile0 + g)];
+    sy = src[3 * (tile0 + g) + 1];
+    sz = src[3 * (tile0 + g) + 2];
+  }
+  float reach = kBig;  // the list's K-th distance
+
+  for (int off = 0; off < part_len; off += chunk) {
+    const int len = min(chunk, part_len - off);
+    if (off > 0) __syncthreads();  // the previous chunk is no longer read
+    for (int ww = 0; ww < kWarps; ++ww) {
+      const int gbase = (rank * kWarps + ww) * part_len + off;
+      const int have = max(0, min(len, m - gbase));  // targets before m
+      for (int e = threadIdx.x; e < 3 * have; e += kThreads)
+        copy_async4(sxyz + ww * 3 * chunk + e, tgt + 3ll * gbase + e);
+      for (int e = threadIdx.x; e < have; e += kThreads)
+        copy_async4(smask + ww * chunk + e, tgt_mask + gbase + e);
+    }
+    copy_async_wait();
+    __syncthreads();
+    for (int ww = 0; ww < kWarps; ++ww) {  // park the masked targets
+      const int have = max(0, min(len, m - ((rank * kWarps + ww) * part_len + off)));
+      float* xyz = sxyz + ww * 3 * chunk;
+      for (int j = threadIdx.x; j < have; j += kThreads) {
+        if (!(smask[ww * chunk + j] > 0.5f))
+          xyz[3 * j] = xyz[3 * j + 1] = xyz[3 * j + 2] = kPark;
+      }
+    }
+    __syncthreads();
+    const float* mine = sxyz + w * 3 * chunk;
+    const int base = (rank * kWarps + w) * part_len + off;
+    const int have = max(0, min(len, m - base));
+    // targets in ascending index order: strict '<' against the K-th entry
+    // and a shift that stops at an equal distance keep (d2, index) order
+    for (int j = 0; j < have; ++j) {
+      const float d2 = sq_dist(sx, sy, sz, mine + 3 * j);
+      if (d2 < reach) {
+        int p = K - 1;
+        for (; p > 0; --p) {
+          const float prev = ld[(p - 1) * 32];
+          if (!(prev > d2)) break;
+          ld[p * 32] = prev;
+          li[p * 32] = li[(p - 1) * 32];
+        }
+        ld[p * 32] = d2;
+        li[p * 32] = base + j;
+        reach = ld[(K - 1) * 32];
+      }
+    }
+  }
+  cluster.sync();
+
+  // merge: this block finishes its slice of the tile's sources, one thread
+  // a source, by a K-way merge over the parts (cluster rank major, warp
+  // minor: ascending index ranges, so strict '<' keeps the lower index on
+  // equal distances). The heads, [part][slice source], take the staging's
+  // place: parts * per = 128 ints, within the smallest staging (4 warps x
+  // 8 targets x 16 B).
+  int* const heads = reinterpret_cast<int*>(sxyz);
+  const int parts = csize * kWarps;
+  const int per = (32 + csize - 1) / csize;
+  const int ls = rank * per + threadIdx.x;
+  if (threadIdx.x < per && ls < 32 && tile0 + ls < n) {
+    int* const hd = heads + threadIdx.x;
+    for (int p = 0; p < parts; ++p) hd[p * per] = 0;
+    const int s = tile0 + ls;
+    const bool src_ok = src_mask[s] > 0.5f;
+    for (int q = 0; q < K; ++q) {
+      float best = kBig;
+      int bp = -1, bh = 0;
+      for (int p = 0; p < parts; ++p) {
+        const int h = hd[p * per];
+        if (h < K) {
+          const float* rd = cluster.map_shared_rank(part_d2, p / kWarps);
+          const float v = rd[((p % kWarps) * K + h) * 32 + ls];
+          if (bp < 0 || v < best) {
+            best = v;
+            bp = p;
+            bh = h;
+          }
+        }
+      }
+      const int* ri = cluster.map_shared_rank(part_idx, bp / kWarps);
+      int idx = min(ri[((bp % kWarps) * K + bh) * 32 + ls], m - 1);
+      hd[bp * per] = bh + 1;
+      float d2 = best;
+      if (d2 > kInvalidD2) {
+        d2 = kBig;
+        idx = 0;
+      }
+      if (!src_ok) d2 = kBig;
+      out_dist[static_cast<long long>(s) * K + q] = sqrtf(d2);
+      out_idx[static_cast<long long>(s) * K + q] = idx;
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its lists
+}
+
+using SearchFn = void (*)(const float*, const float*, const float*, const float*, int, int,
+                          int, int, long long, long long, long long, long long, float*, int*);
+
+// The kernel of a compiled (K, R): the register lists up to kMaxRegisterK,
+// the shared-memory lists beyond.
+template <int K, int R>
+SearchFn search_kernel() {
+  if constexpr (K > kMaxRegisterK) {
+    static_assert(R == 1, "shared-memory lists take R = 1");
+    return knn_search_shared<K>;
+  } else {
+    return knn_search<K, R>;
+  }
+}
+
 template <int K, int R>
 cudaError_t configure() {
   // once per device: allow the dynamic shared memory above 48 KB
@@ -393,7 +559,7 @@ cudaError_t configure() {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 64 && (done >> dev & 1ull)) return cudaSuccess;
-  e = cudaFuncSetAttribute(knn_search<K, R>,
+  e = cudaFuncSetAttribute(search_kernel<K, R>(),
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (e == cudaSuccess && dev < 64) done |= 1ull << dev;
   return e;
@@ -408,6 +574,7 @@ bool plan_ok(int n, int m, int k, int batch, int rows, int cluster, int tiles,
          chunk % kStepAlign == 0 && chunk <= part_len &&
          static_cast<long long>(tiles) * 32 * rows >= n &&
          static_cast<long long>(part_len) * cluster * kWarps >= m &&
+         (k <= kMaxRegisterK || rows == 1) &&
          smem == smem_bytes(k, rows, chunk) && smem <= kMaxSmem;
 }
 
@@ -434,7 +601,7 @@ int launch_knn(const float* src, const float* src_mask, const float* tgt,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, knn_search<K, R>, src, src_mask, tgt, tgt_mask,
+  e = cudaLaunchKernelEx(&cfg, search_kernel<K, R>(), src, src_mask, tgt, tgt_mask,
                          n, m, part_len, chunk, src_ls, src_mask_ls, tgt_ls,
                          tgt_mask_ls, out_dist, out_idx);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -459,7 +626,7 @@ int max_active_clusters(int cluster, int smem) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int count = 0;
-  e = cudaOccupancyMaxActiveClusters(&count, knn_search<K, R>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&count, search_kernel<K, R>(), &cfg);
   return e == cudaSuccess ? count : -static_cast<int>(e);
 }
 

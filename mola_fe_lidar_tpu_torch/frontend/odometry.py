@@ -80,6 +80,7 @@ from ..models.icp import (_CAND_KINDS, _CAND_KNN_KINDS, ICPResult, align_pipelin
 from ..models.presets import icp_cases_kitti
 from ..parallel.batch import monte_carlo_guesses
 from ..utils.config import DEG2RAD, yaml_get
+from ..utils.profiler import ProfilerEntry
 from .backend import (AdvertiseLocalization, FactorRelativePose3, HostPose,
                       ProposeKFInput)
 from .icp_config import icp_stages_from_config
@@ -449,6 +450,15 @@ class LidarOdometry(FrontEndBase):
                 accum_since_last_kf_t=np.array(st.accum_since_last_kf_t),
                 local_pose_graph=g, checked_KF_pairs=set(st.checked_KF_pairs),
                 edge_log=list(st.edge_log), lc_pairs=list(st.lc_pairs))
+
+    def spin_once(self) -> None:
+        """Periodic heartbeat: records the scan queue's depth and the
+        nearby checks in flight (the reference's ``spin_once``)."""
+        with ProfilerEntry(self.profiler, "spinOnce"):
+            with self._pending_lock:
+                self.profiler.register_user_measure("spinOnce.pending_scans", self._pending)
+                self.profiler.register_user_measure("spinOnce.nearby_inflight",
+                                                    self._nearby_inflight)
 
     # ------------------------------------------------------------------
     def on_new_observation(self, obs: RawObservation):

@@ -25,6 +25,26 @@ class Pose(NamedTuple):
     t: torch.Tensor  # f32[..., 3]
 
 
+def identity(batch_shape=(), dtype=torch.float32, device="cuda") -> Pose:
+    R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3).clone()
+    return Pose(R, torch.zeros((*batch_shape, 3), dtype=dtype, device=device))
+
+
+def from_xyz_ypr(x, y, z, yaw, pitch, roll, dtype=torch.float32, device="cuda") -> Pose:
+    """MRPT CPose3D convention: R = Rz(yaw) Ry(pitch) Rx(roll)."""
+    x, y, z, yaw, pitch, roll = (torch.as_tensor(v, dtype=dtype, device=device)
+                                 for v in (x, y, z, yaw, pitch, roll))
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    R = torch.stack([
+        torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], -1),
+        torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], -1),
+        torch.stack([-sp, cp * sr, cp * cr], -1),
+    ], dim=-2)
+    return Pose(R, torch.stack([x, y, z], dim=-1))
+
+
 def hat(w: torch.Tensor) -> torch.Tensor:
     """so(3) hat operator: w[...,3] -> skew-symmetric [...,3,3]."""
     wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
@@ -131,3 +151,8 @@ def transform(p: Pose, pts: torch.Tensor) -> torch.Tensor:
 
 def rotation_angle(p: Pose) -> torch.Tensor:
     return torch.linalg.vector_norm(so3_log(p.R), dim=-1)
+
+
+def translation_norm(p: Pose) -> torch.Tensor:
+    """‖t‖ (CPose3D::norm())."""
+    return torch.linalg.vector_norm(p.t, dim=-1)

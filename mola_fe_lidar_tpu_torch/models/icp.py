@@ -9,15 +9,16 @@ Gauss-Newton solver with its weak prior and the closed-form Horn and OLAE
 solvers; the paired-ratio quality with its fixed subsample and its
 symmetric (reverse-direction) form; the candidate cache (top-K refresh
 every ``cand_refresh`` iterations, exact re-argmin over the K candidates in
-between; opt-in for the kNN matchers with ``cand_k >= knn``), the plain
-loop and its Anderson-accelerated form (``anderson_m``: type-II Anderson
-extrapolation on the SE(3) chart at the initial pose, with the reference's
-revert and reset rules; incompatible with candidate caches, as in the
-reference). Nearest-neighbour searches
-go through the hand-written kernels (``ops/knn_kernel.py`` K1,
-``ops/nn_kernel.py`` K2), which take their plain twins for CPU tensors:
-every ``nn_backend`` of the reference except ``"grid"`` is the same exact
-search here.
+between; opt-in for the kNN matchers with ``cand_k >= knn``; with
+``cand_refresh_min_trans`` / ``_rot`` a block head refreshes only once the
+pose has moved that far since the last refresh), the plain loop and its
+Anderson-accelerated form (``anderson_m``: type-II Anderson extrapolation
+on the SE(3) chart at the initial pose, with the reference's revert and
+reset rules; incompatible with candidate caches, as in the reference).
+Nearest-neighbour searches go through the hand-written kernels
+(``ops/knn_kernel.py`` K1, ``ops/nn_kernel.py`` K2), which take their plain
+twins for CPU tensors: every ``nn_backend`` of the reference except
+``"grid"`` is the same exact search here.
 
 The reference runs the whole loop as one ``lax.while_loop``. Here the host
 reads the iteration count and the convergence flag once per block of
@@ -101,10 +102,6 @@ def check_params(params: ICPParams) -> None:
     if params.solver.kind != "gauss_newton" and not any(
             m.kind == "point2point" for m in params.matchers):
         raise ValueError(f"{params.solver.kind} solver needs at least one point2point matcher")
-    if params.cand_refresh_min_trans > 0 or params.cand_refresh_min_rot > 0:
-        raise NotImplementedError(
-            "motion-conditional candidate refresh is not ported (ROADMAP "
-            "Queue 1 item 14: it serves the map localizer)")
     if params.shard_axis is not None:
         raise NotImplementedError(
             "tensor-parallel align is not ported (ROADMAP Queue 1 item 16)")
@@ -504,19 +501,49 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
                      & (torch.linalg.vector_norm(delta[..., 3:], dim=-1) < params.min_abs_step_rot))
         return new_pose, converged
 
+    def refresh(at):
+        full = [None] * len(params.matchers)
+        for i in elig:
+            m = params.matchers[i]
+            full[i] = _refresh_cands(m, at, src_map[m.src_layer], tgt_map[m.tgt_layer])
+        return tuple(full)
+
+    # the motion-conditional refresh (the reference's ``body_cands_cond``):
+    # a block head refreshes the lists only where the pose moved at least
+    # cand_refresh_min_trans / _rot since the last refresh (``ref``)
+    cond_refresh = uses_cands and (params.cand_refresh_min_trans > 0
+                                   or params.cand_refresh_min_rot > 0)
+
+    def moved_since(ref):
+        delta = se3.log(se3.compose(pose, se3.inverse(ref)))
+        terms = []
+        if params.cand_refresh_min_trans > 0:
+            terms.append(torch.linalg.vector_norm(delta[..., :3], dim=-1)
+                         >= params.cand_refresh_min_trans)
+        if params.cand_refresh_min_rot > 0:
+            terms.append(torch.linalg.vector_norm(delta[..., 3:], dim=-1)
+                         >= params.cand_refresh_min_rot)
+        return functools.reduce(torch.logical_or, terms)
+
     pose = init_pose
     it = torch.zeros(lanes, dtype=torch.int32, device=dev)
     done = torch.zeros(lanes, dtype=torch.bool, device=dev)
     hist = _Anderson.empty(lanes, params.anderson_m, dev) if params.anderson_m > 0 else None
     finished = params.max_iterations <= 0
+    cands = ref = moved = None
     while not finished:
-        cands = None
         if uses_cands:
-            full = [None] * len(params.matchers)
-            for i in elig:
-                m = params.matchers[i]
-                full[i] = _refresh_cands(m, pose, src_map[m.src_layer], tgt_map[m.tgt_layer])
-            cands = tuple(full)
+            if cands is None or not cond_refresh:
+                cands, ref = refresh(pose), pose  # the first refresh is at init_pose
+            elif lanes:
+                # per lane, as under the reference's vmap: both branches run
+                # and the lanes that moved (and are not done) take the refresh
+                moved = moved & ~done & (it < params.max_iterations)
+                cands = tuple(c if c is None else torch.where(moved[..., None, None], f, c)
+                              for c, f in zip(cands, refresh(pose)))
+                ref = _freeze(moved, pose, ref)
+            elif moved:
+                cands, ref = refresh(pose), pose
         for _ in range(block):
             active = ~done & (it < params.max_iterations)
             new_pose, converged = step(pose, it, cands)
@@ -527,10 +554,17 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
             pose = _freeze(active, new_pose, pose)
             done = done | (active & converged)
             it = it + active.to(torch.int32)
-        # the one host read per block, for every lane
-        n_it, is_done = torch.stack([it.to(torch.float32),
-                                     done.to(torch.float32)]).reshape(2, -1).tolist()
-        finished = all(d > 0.5 or n >= params.max_iterations for n, d in zip(n_it, is_done))
+        # the one host read per block, for every lane; unbatched, the moved
+        # flag rides it and a block head without motion skips the refresh
+        rows = [it.to(torch.float32), done.to(torch.float32)]
+        if cond_refresh:
+            moved = moved_since(ref)
+            if not lanes:
+                rows.append(moved.to(torch.float32))
+        read = torch.stack(rows).reshape(len(rows), -1).tolist()
+        if cond_refresh and not lanes:
+            moved = read[2][0] > 0.5
+        finished = all(d > 0.5 or n >= params.max_iterations for n, d in zip(read[0], read[1]))
 
     # final system at the converged pose -> covariance
     plane, _ = _gather(pose, it, src_map, tgt_map, params)

@@ -8,9 +8,15 @@
 path it serves the candidate-cache refreshes (k = 4 for decimated -> planes
 and k = 8 for edges -> edges) and the point-to-line matcher (k = 5); on the
 pairwise-registration path the ``point2plane_knn`` matcher (k = 6), the kNN
-normals (k = 8) and the GICP covariances (k = 10). The Pallas kernel takes
-any k <= 128; K1 is compiled for ``SUPPORTED_K`` and raises for other k on
-CUDA tensors.
+normals (k = 8) and the GICP covariances (k = 10).
+
+Like the Pallas kernel, K1 takes any k <= 128 (a larger k raises). It is
+compiled for the list lengths ``COMPILED_K``: ``REGISTER_K`` keep their
+lists in registers (``csrc/knn_common.cuh::knn_search``), ``SHARED_K`` in
+shared memory (``knn_search_shared``, R = 1). Any other k runs at the next
+compiled length and returns the first k columns (:func:`compiled_k`). That
+is exact: both lists are in (d2, index) order, and the fill for missing
+neighbours (the sentinel with index 0) comes after every real neighbour.
 
 Both wrappers take one search (``src [N,3]``, ``tgt [M,3]``) or a batch of
 B independent ones (``src [B,N,3]``, ``tgt [B,M,3]``, masks ``[B,N]`` /
@@ -33,15 +39,22 @@ import torch
 from . import cuda_build
 from .matching import NNResult, knn as knn_plain
 
-SUPPORTED_K = (1, 4, 5, 6, 8, 10, 16)
-#: sources per thread compiled for every k (``csrc/knn.cu`` instantiates
-#: exactly these; ``-Xptxas -v`` shows no spills at any of them)
+#: list lengths compiled with the lists in registers, and in shared memory
+#: (``csrc/knn.cu`` instantiates exactly these; ``-Xptxas -v`` shows no
+#: spills at any of them)
+REGISTER_K = (1, 4, 5, 6, 8, 10, 16)
+SHARED_K = (32, 64, 128)
+COMPILED_K = REGISTER_K + SHARED_K
+MAX_K = 128        # the Pallas wrapper's limit (pallas_knn.py:133)
+#: sources per thread compiled for every register length (the shared-
+#: memory lengths take R = 1 only)
 ROWS = (1, 2)
 THREADS = 128      # threads per block (csrc: kThreads)
 WARPS = THREADS // 32  # target parts a block: one a warp (csrc: kWarps)
 STEP_ALIGN = 8     # part and chunk lengths are multiples of it (csrc: kStepAlign)
 CLUSTERS = (1, 2, 4, 8)  # blocks per cluster: the portable sizes
 STAGE_TARGETS = 6144     # targets a block stages at once (96 KB at 16 B each)
+SHARED_STAGE_TARGETS = 2048  # the same beside shared-memory lists (32 KB)
 MIN_PART = 1024    # targets below which a part costs more than more blocks gain
 MAX_TILES = 65535  # grid.y limit
 
@@ -82,17 +95,39 @@ def _round_up(x: int, q: int) -> int:
     return -(-x // q) * q
 
 
+def compiled_k(k: int) -> int:
+    """The compiled list length a request for ``k`` neighbours runs at:
+    the smallest of ``COMPILED_K`` that is at least ``k``."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn kernel supports 1 <= k <= {MAX_K}, got {k}")
+    return next(c for c in COMPILED_K if c >= k)
+
+
+def rows_for(k: int) -> tuple:
+    """The sources-per-thread counts compiled for a request of ``k``."""
+    return ROWS if compiled_k(k) in REGISTER_K else (1,)
+
+
 def make_plan(n: int, m: int, k: int, rows: int, cluster: int,
-              stage_targets: int = STAGE_TARGETS) -> LaunchPlan:
-    """The plan with these choices: ``m`` cut into ``cluster * WARPS``
-    equal parts (rounded up to STEP_ALIGN), each staged ``stage_targets //
-    WARPS`` targets at a time."""
+              stage_targets: int = 0) -> LaunchPlan:
+    """The plan for a request of ``k`` with these choices: ``m`` cut into
+    ``cluster * WARPS`` equal parts (rounded up to STEP_ALIGN), each staged
+    ``stage_targets // WARPS`` targets at a time (by default
+    ``STAGE_TARGETS``, or ``SHARED_STAGE_TARGETS`` for a shared-memory
+    length)."""
+    kc = compiled_k(k)
+    if rows not in rows_for(k):
+        raise ValueError(f"k={k} runs at {kc}, compiled for R in {rows_for(k)}, got {rows}")
+    shared = kc in SHARED_K
+    stage_targets = stage_targets or (SHARED_STAGE_TARGETS if shared else STAGE_TARGETS)
     part_len = _round_up(-(-m // (cluster * WARPS)), STEP_ALIGN)
     chunk = min(part_len, max(STEP_ALIGN, (stage_targets // WARPS) // STEP_ALIGN * STEP_ALIGN))
     tiles = -(-n // (32 * rows))
-    # staged targets (x, y, z and mask: 16 B), and aliased over them after
-    # the scan the per-part sorted lists (d2 f32 + index i32) of the warps
-    smem = max(WARPS * chunk * 16, THREADS * rows * k * 8)
+    # staged targets (x, y, z and mask: 16 B) and the per-part sorted lists
+    # (d2 f32 + index i32) of the warps: aliased over the staging after the
+    # scan for register lists, beside it for shared-memory lists
+    staged, lists = WARPS * chunk * 16, THREADS * rows * kc * 8
+    smem = staged + lists if shared else max(staged, lists)
     return LaunchPlan(rows, cluster, tiles, part_len, chunk, smem)
 
 
@@ -102,20 +137,20 @@ def step_len(k: int) -> int:
 
 
 def plan_launch(n: int, m: int, k: int, sm_count: int) -> LaunchPlan:
-    """The launch plan for ``n`` sources, ``m`` targets and list length
-    ``k`` on a card with ``sm_count`` SMs, by a rule that picks the fastest
-    plan of ``scripts/torch_knn_sweep.py`` at every main-path shape:
+    """The launch plan for ``n`` sources, ``m`` targets and a request of
+    ``k`` neighbours (run at ``compiled_k(k)``) on a card with ``sm_count``
+    SMs, by a rule that picks the fastest plan of
+    ``scripts/torch_knn_sweep.py`` at every main-path shape:
 
     * R = 2 sources a thread (one shared load feeds two pairs) when tiles of
-      64 sources still give half an SM count of blocks, else 1;
+      64 sources still give half an SM count of blocks and the lists are in
+      registers, else 1;
     * the smallest cluster that gives at least half an SM count of blocks
       (two warps a sub-partition), doubled while the blocks still fit two
       to an SM and the parts keep ``MIN_PART`` targets."""
-    if k not in SUPPORTED_K:
-        raise ValueError(f"knn kernel supports k in {SUPPORTED_K}, got {k}")
     if n < 1 or m < 1:
         raise ValueError(f"plan_launch needs n, m >= 1, got {n}, {m}")
-    rows = 2 if 2 * -(-n // 64) >= sm_count else 1
+    rows = 2 if 2 * -(-n // 64) >= sm_count and 2 in rows_for(k) else 1
     tiles = -(-n // (32 * rows))
     if tiles > MAX_TILES:
         raise ValueError(f"plan_launch: {n} sources exceed {MAX_TILES} tiles")
@@ -171,11 +206,11 @@ def check_inputs(src, src_mask, tgt, tgt_mask) -> int:
 def launch(src, src_mask, tgt, tgt_mask, k: int, plan: LaunchPlan, dist, idx,
            lib=None) -> None:
     """One launch of the search with an explicit plan into ``dist``/``idx``
-    (``[..., n, k]``, or ``[..., n]`` for K2), through K2's entry point for
-    the 1-NN form and K1's otherwise, on the current stream of the tensors'
-    device. A batch runs its lanes on grid.z, each with ``plan``. The
-    wrappers call it; tuning runs may call it with another plan or another
-    build of the library (``lib``)."""
+    (``[..., n, k]`` for a compiled length ``k``, or ``[..., n]`` for K2),
+    through K2's entry point for the 1-NN form and K1's otherwise, on the
+    current stream of the tensors' device. A batch runs its lanes on
+    grid.z, each with ``plan``. The wrappers call it; tuning runs may call
+    it with another plan or another build of the library (``lib``)."""
     lib = lib or cuda_build.library()
     dev = src.device.index
     if dev != torch.cuda.current_device():
@@ -197,21 +232,22 @@ def launch(src, src_mask, tgt, tgt_mask, k: int, plan: LaunchPlan, dist, idx,
 
 def knn(src, src_mask, tgt, tgt_mask, k: int) -> NNResult:
     """Exact k-NN, ``idx i32[..., N, k]`` / ``dist f32[..., N, k]``
-    ascending (the ``pallas_knn`` contract; see ``ops/matching.py``)."""
+    ascending (the ``pallas_knn`` contract; see ``ops/matching.py``), for
+    any ``1 <= k <= MAX_K``."""
     global launches
     if src.device.type == "cpu":
         return knn_plain(src, src_mask, tgt, tgt_mask, k)
     if src.device.type != "cuda":
         raise ValueError(f"knn: unsupported device {src.device}")
-    if k not in SUPPORTED_K:
-        raise ValueError(f"knn kernel supports k in {SUPPORTED_K}, got {k}")
+    kc = compiled_k(k)
     batch = check_inputs(src, src_mask, tgt, tgt_mask)
     n, m = src.shape[-2], tgt.shape[-2]
-    dist = torch.empty((*src.shape[:-1], k), dtype=torch.float32, device=src.device)
-    idx = torch.empty((*src.shape[:-1], k), dtype=torch.int32, device=src.device)
-    if n == 0:
-        return NNResult(idx, dist)
-    launch(src, src_mask, tgt, tgt_mask, k, cached_plan(src.device, n, m, k), dist, idx)
-    launches += 1
-    launches_by_shape[(batch, n, m, k)] += 1
+    dist = torch.empty((*src.shape[:-1], kc), dtype=torch.float32, device=src.device)
+    idx = torch.empty((*src.shape[:-1], kc), dtype=torch.int32, device=src.device)
+    if n > 0:
+        launch(src, src_mask, tgt, tgt_mask, kc, cached_plan(src.device, n, m, k), dist, idx)
+        launches += 1
+        launches_by_shape[(batch, n, m, k)] += 1
+    if kc != k:
+        dist, idx = dist[..., :k].contiguous(), idx[..., :k].contiguous()
     return NNResult(idx, dist)

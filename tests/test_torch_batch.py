@@ -54,7 +54,7 @@ def _share(x, shared):
 
 
 @pytest.mark.parametrize("share", ["none", "tgt", "both"])
-@pytest.mark.parametrize("k", knn_kernel.SUPPORTED_K)
+@pytest.mark.parametrize("k", knn_kernel.REGISTER_K)
 def test_batched_twins_are_separate_calls(rng, k, share):
     src, sm, tgt, tm = _clouds(rng, 70, 130, B)
     src, sm = _share(src, share == "both"), _share(sm, share == "both")
@@ -90,7 +90,7 @@ def test_cuda_batched_kernels_match_twins_and_unbatched_launches(rng):
     src, sm, tgt, tm = (x.cuda() for x in _clouds(rng, 1500, 9000, B))
     for shared in (False, True):
         t, m = _share(tgt, shared), _share(tm, shared)
-        for k in knn_kernel.SUPPORTED_K:
+        for k in knn_kernel.COMPILED_K + (3, 100):
             got = knn_kernel.knn(src, sm, t, m, k)
             want = matching.knn(src, sm, t, m, k)
             assert torch.equal(got.idx, want.idx) and torch.equal(got.dist, want.dist)

@@ -19,6 +19,7 @@ import torch
 
 from mola_fe_lidar_tpu.cloud.metric_map import PointCloud as JPointCloud
 from mola_fe_lidar_tpu.geometry import se3 as jse3
+from mola_fe_lidar_tpu.models import config as jconfig
 from mola_fe_lidar_tpu.models import icp as jicp
 from mola_fe_lidar_tpu.models.config import AlignKind as JAlignKind
 from mola_fe_lidar_tpu.obs.hdl64 import hdl64_sequence
@@ -26,7 +27,7 @@ from mola_fe_lidar_tpu.frontend.odometry import LidarOdometry as JLidarOdometry
 from mola_fe_lidar_tpu_torch.cloud.metric_map import from_numpy_layers, to_numpy_layers
 from mola_fe_lidar_tpu_torch.filters.generators import apply_generators
 from mola_fe_lidar_tpu_torch.geometry import se3
-from mola_fe_lidar_tpu_torch.models import icp
+from mola_fe_lidar_tpu_torch.models import config, icp
 from mola_fe_lidar_tpu_torch.models.config import AlignKind
 from mola_fe_lidar_tpu_torch.obs.runner import build_module, realtime_config
 
@@ -89,20 +90,79 @@ def test_align_pipeline_matches_reference(setup, for_map):
 def test_unported_stage_settings_raise(setup):
     port = setup[0]
     stage = port._stages_for(AlignKind.LIDAR_ODOMETRY, False)[0]
-    bad = [dataclasses.replace(stage, cand_refresh_min_trans=0.05),
-           dataclasses.replace(stage, shard_axis="model"),
+    bad = [dataclasses.replace(stage, shard_axis="model"),
            dataclasses.replace(stage, matchers=(dataclasses.replace(
                stage.matchers[0], nn_backend="grid"),))]
     for params in bad:
         with pytest.raises(NotImplementedError):
             icp.check_params(params)
-    # ported since: Anderson acceleration, point-to-point matching with the
-    # closed-form solvers; like the reference, those solvers need a
-    # point-to-point matcher
+    # ported since: Anderson acceleration, the motion-conditional candidate
+    # refresh, point-to-point matching with the closed-form solvers; like
+    # the reference, those solvers need a point-to-point matcher
     icp.check_params(dataclasses.replace(stage, anderson_m=3))
+    icp.check_params(dataclasses.replace(stage, cand_refresh_min_trans=0.05))
     p2p = dataclasses.replace(stage.matchers[0], kind="point2point")
     for kind in ("horn", "olae"):
         solver = dataclasses.replace(stage.solver, kind=kind)
         icp.check_params(dataclasses.replace(stage, solver=solver, matchers=(p2p,)))
         with pytest.raises(ValueError):
             icp.check_params(dataclasses.replace(stage, solver=solver))
+
+
+@pytest.mark.parametrize("lanes", [0, 2], ids=["unbatched", "lanes"])
+def test_motion_conditional_refresh_matches_reference(setup, lanes, monkeypatch):
+    """``cand_refresh_min_*`` (the reference's ``body_cands_cond``,
+    mirroring ``tests/test_icp.py``'s case): point-to-point Horn from the
+    decimated layer to the planes layer with top-4 candidates. The port's
+    conditional run gives the reference's conditional pose (1 mm / 0.2
+    mrad, equal iterations), unbatched (the refresh skipped for real) and
+    with lanes (both branches, selected per lane), and from the first start
+    it agrees with the fixed cadence within the reference test's tolerance
+    (1e-4 m / 1e-5 on R)."""
+    _, _, (tgt, src), (gR, gt_) = setup
+    # 512 decimated points against the planes layer: the reference's eager
+    # align takes seconds a call on the CPU
+    src = {"decimated": {"xyz": src["decimated"]["xyz"][:512],
+                         "mask": src["decimated"]["mask"][:512], "attrs": {}}}
+    mk = dict(kind="point2point", src_layer="decimated", tgt_layer="planes",
+              distance_threshold=2.0, cand_k=4)
+    params = {}
+    for name, c in (("port", config), ("ref", jconfig)):
+        fixed = c.ICPParams(
+            max_iterations=60, cand_refresh=4, matchers=(c.Matcher(**mk),),
+            solver=c.Solver(kind="horn"), weights=c.PairWeights(use_scale_outlier_detector=False),
+            quality=(c.Quality(src_layer="decimated", tgt_layer="planes"),))
+        # thresholds at which this run's last block head has not moved
+        params[name] = (fixed, dataclasses.replace(fixed, cand_refresh_min_trans=0.05,
+                                                   cand_refresh_min_rot=0.002))
+    inits_t = np.stack([gt_, gt_ + np.array([0.3, -0.2, 0.0], np.float32)])[:max(lanes, 1)]
+    inits_R = np.stack([gR] * len(inits_t))
+    psrc, ptgt = from_numpy_layers(src, "cpu"), from_numpy_layers(tgt, "cpu")
+    pose = (se3.Pose(torch.from_numpy(inits_R), torch.from_numpy(inits_t)) if lanes
+            else se3.Pose(torch.from_numpy(gR), torch.from_numpy(gt_)))
+    refreshes = []
+    with monkeypatch.context() as mp:
+        count = icp._refresh_cands
+        mp.setattr(icp, "_refresh_cands", lambda *a: refreshes.append(1) or count(*a))
+        fixed = icp.align(psrc, ptgt, pose, params["port"][0])
+        n_fixed = len(refreshes)
+        cond = icp.align(psrc, ptgt, pose, params["port"][1])
+    # unbatched, a block head without motion skips the refresh
+    assert (len(refreshes) - n_fixed < n_fixed) == (not lanes)
+    for b in range(max(lanes, 1)):
+        # the reference's vmap runs each lane's conditional as the
+        # unbatched align does (lax.cond lowered to a select per lane)
+        jres = jicp.align(_jmap(src), _jmap(tgt), jse3.Pose(jnp.asarray(gR), jnp.asarray(inits_t[b])),
+                          params["ref"][1])
+        at = (b,) if lanes else ()
+        R, t = cond.pose.R.numpy()[at], cond.pose.t.numpy()[at]
+        jR, jt = np.asarray(jres.pose.R), np.asarray(jres.pose.t)
+        dR = R.astype(np.float64).T @ jR.astype(np.float64)
+        assert np.linalg.norm(t - jt) < 1e-3
+        assert 0.5 * np.linalg.norm([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0],
+                                     dR[1, 0] - dR[0, 1]]) < 2e-4
+        assert int(cond.n_iterations.numpy()[at]) == int(jres.n_iterations)
+        if b == 0:  # from the second lane's start the skipped refresh moves
+            # both packages' answer by ~1 mm: no longer the fixed cadence's
+            np.testing.assert_allclose(t, fixed.pose.t.numpy()[at], atol=1e-4)
+            np.testing.assert_allclose(R, fixed.pose.R.numpy()[at], atol=1e-5)

@@ -27,6 +27,8 @@ from mola_fe_lidar_tpu_torch.ops import knn_kernel, matching, nn_kernel
 
 torch.set_num_threads(1)
 SEP = 1e-3
+# list lengths that run at a longer compiled one (chip_smoke.NEW_KS)
+NEW_KS = (2, 3, 7, 9, 12, 17, 33, 100)
 
 
 @pytest.fixture
@@ -69,7 +71,7 @@ def _separated(d):
     return np.all(np.diff(d, axis=1) > SEP, axis=1)
 
 
-@pytest.mark.parametrize("k", knn_kernel.SUPPORTED_K)
+@pytest.mark.parametrize("k", knn_kernel.REGISTER_K + (3, 32))
 def test_knn_twin_matches_pallas_and_xla(rng, interp, k):
     src, sm, tgt, tm = _clouds(rng)
     res = matching.knn(*_t(src, sm, tgt, tm), k)
@@ -176,7 +178,7 @@ def test_self_knn_with_duplicates(rng, interp, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", knn_kernel.SUPPORTED_K)
+@pytest.mark.parametrize("k", knn_kernel.COMPILED_K + NEW_KS)
 def test_cuda_kernels_match_twins(rng, k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python3 chip_smoke.py, or pytest -m cuda on one)")
@@ -194,14 +196,16 @@ def test_cuda_kernels_match_twins(rng, k):
 # The launch plan (pure Python) and the search it drives, emulated on the CPU
 
 MAIN_SHAPES = [(8192, 32768, 4), (2048, 8192, 8), (2048, 8192, 5), (2048, 2048, 5),
-               (1024, 32768, 1), (8192, 32768, 1), (8192, 8192, 1)]
+               (1024, 32768, 1), (8192, 32768, 1), (8192, 8192, 1),
+               (4096, 131072, 4), (4096, 131072, 1)]  # the map localizer's
 EDGE_SHAPES = [(1, 1, 1), (777, 37, 4), (300, 1, 16), (5, 26, 8), (100_000, 300, 5),
-               (3, 70_000, 4), (129, 2500, 1)]
+               (3, 70_000, 4), (129, 2500, 1), (777, 2500, 128), (2048, 8192, 33),
+               (5, 26, 3)]
 
 
 def _all_plans(n, m, k):
     yield knn_kernel.plan_launch(n, m, k, 132)
-    for r in knn_kernel.ROWS:
+    for r in knn_kernel.rows_for(k):
         for c in knn_kernel.CLUSTERS:
             for stage in (knn_kernel.STAGE_TARGETS, 64):
                 yield knn_kernel.make_plan(n, m, k, r, c, stage)
@@ -235,8 +239,42 @@ def test_plan_fills_the_card_at_main_path_shapes(n, m, k):
 
 
 def test_plan_rejects_unsupported_k():
-    with pytest.raises(ValueError):
-        knn_kernel.plan_launch(10, 10, 3, 132)
+    for k in (0, knn_kernel.MAX_K + 1):
+        with pytest.raises(ValueError):
+            knn_kernel.plan_launch(10, 10, k, 132)
+    with pytest.raises(ValueError):  # shared-memory lists take R = 1 only
+        knn_kernel.make_plan(10, 10, 32, 2, 1)
+
+
+def test_every_k_plans_for_its_compiled_length():
+    """Each k <= 128 runs at the smallest compiled length >= k, with that
+    length's plan (R = 1 for the shared-memory lists), within a block's
+    shared memory at every cluster size and staging budget."""
+    for k in range(1, knn_kernel.MAX_K + 1):
+        kc = knn_kernel.compiled_k(k)
+        assert kc >= k and kc in knn_kernel.COMPILED_K
+        assert not any(k <= c < kc for c in knn_kernel.COMPILED_K)
+        for n, m in ((2048, 8192), (4096, 131072), (10, 10)):
+            plan = knn_kernel.plan_launch(n, m, k, 132)
+            assert plan == knn_kernel.plan_launch(n, m, kc, 132)
+            assert plan.rows in knn_kernel.rows_for(k)
+        for c in knn_kernel.CLUSTERS:
+            for stage in (0, knn_kernel.STAGE_TARGETS, 64):
+                assert knn_kernel.make_plan(777, 2500, k, 1, c, stage).smem <= 232448
+    assert knn_kernel.rows_for(17) == (1,) and knn_kernel.rows_for(16) == knn_kernel.ROWS
+
+
+@pytest.mark.parametrize("k", NEW_KS)
+def test_routed_length_is_the_compiled_lists_prefix(rng, k):
+    """The first k columns of the twin at the compiled length are the twin
+    at k, also with fewer valid targets (and fewer targets) than k: the
+    sentinel fill comes after every real neighbour."""
+    kc = knn_kernel.compiled_k(k)
+    for m, valid in ((520, 0.9), (k + 3, 0.3), (max(1, k // 2), 1.0)):
+        src, sm, tgt, tm = _t(*_clouds(rng, n=60, m=m, tgt_valid=valid))
+        want = matching.knn(src, sm, tgt, tm, k)
+        got = matching.knn(src, sm, tgt, tm, kc)
+        assert torch.equal(got.idx[:, :k], want.idx) and torch.equal(got.dist[:, :k], want.dist)
 
 
 def _sqd(s, t):
@@ -303,7 +341,7 @@ def _tie_clouds(rng, n, m, extent=2):
     return src, sm, tgt, tm
 
 
-@pytest.mark.parametrize("k", knn_kernel.SUPPORTED_K)
+@pytest.mark.parametrize("k", knn_kernel.REGISTER_K)
 def test_emulated_search_is_the_twin_under_ties(rng, k):
     src, sm, tgt, tm = _tie_clouds(rng, 24, 300)
     want = matching.knn(*_t(src, sm, tgt, tm), k)
@@ -315,16 +353,69 @@ def test_emulated_search_is_the_twin_under_ties(rng, k):
         np.testing.assert_array_equal(dist, want.dist.numpy())
 
 
+def _emulate_shared(src, sm, tgt, tm, k, plan):
+    """``csrc/knn_common.cuh::knn_search_shared`` in Python: per part, every
+    target in index order into a list by strict '<' against its k-th entry
+    and a shift that stops at an equal distance, then the k-way merge of
+    the parts' lists (strict '<', parts in launch order)."""
+    big = np.float32(1e30)
+    m = tgt.shape[0]
+    s_all = np.where(sm[:, None] > 0.5, src, 0).astype(np.float32)
+    t_all = np.where(tm[:, None] > 0.5, tgt, 3e4).astype(np.float32)
+    idx = np.zeros((src.shape[0], k), np.int32)
+    dist = np.zeros((src.shape[0], k), np.float32)
+    for i, s in enumerate(s_all):
+        lists = []
+        for p in range(plan.parts):
+            lst = [(big, 0)] * k
+            for g in range(p * plan.part_len, min((p + 1) * plan.part_len, m)):
+                d2 = _sqd(s, t_all[g])
+                if d2 < lst[-1][0]:
+                    at = k - 1
+                    while at > 0 and lst[at - 1][0] > d2:
+                        at -= 1
+                    lst = lst[:at] + [(d2, g)] + lst[at:-1]
+            lists.append(lst)
+        heads = [0] * plan.parts
+        for q in range(k):
+            bp = None
+            for p in range(plan.parts):
+                if heads[p] < k and (bp is None or lists[p][heads[p]][0] < lists[bp][heads[bp]][0]):
+                    bp = p
+            v, g = lists[bp][heads[bp]]
+            heads[bp] += 1
+            g = min(g, m - 1)
+            if v > 1e8:
+                v, g = big, 0
+            dist[i, q] = np.sqrt(np.float32(v if sm[i] > 0.5 else big))
+            idx[i, q] = g
+    return idx, dist
+
+
+@pytest.mark.parametrize("k", knn_kernel.SHARED_K[:1])
+def test_emulated_shared_search_is_the_twin_under_ties(rng, k):
+    src, sm, tgt, tm = _tie_clouds(rng, 12, 300)
+    for m, plan in ((300, knn_kernel.make_plan(12, 300, k, 1, 8)),   # 32 parts, some empty
+                    (20, knn_kernel.make_plan(12, 20, k, 1, 1)),     # fewer targets than k
+                    (300, knn_kernel.plan_launch(12, 300, k, 132))):
+        want = matching.knn(*_t(src, sm, tgt[:m], tm[:m]), k)
+        idx, dist = _emulate_shared(src, sm, tgt[:m], tm[:m], k, plan)
+        np.testing.assert_array_equal(idx, want.idx.numpy())
+        np.testing.assert_array_equal(dist, want.dist.numpy())
+
+
 def test_entry_points_default_to_the_card():
     import inspect
 
     from mola_fe_lidar_tpu_torch.cloud import metric_map
     from mola_fe_lidar_tpu_torch.filters import generators
+    from mola_fe_lidar_tpu_torch.frontend.localizer import MapLocalizer
     from mola_fe_lidar_tpu_torch.frontend.odometry import LidarOdometry
     from mola_fe_lidar_tpu_torch.frontend.worldmodel import WorldModel
     from mola_fe_lidar_tpu_torch.obs import runner
 
-    for fn in (LidarOdometry.__init__, WorldModel.__init__, runner.build_module, runner.run_replay,
+    for fn in (LidarOdometry.__init__, WorldModel.__init__, MapLocalizer.__init__,
+               runner.build_module, runner.run_replay,
                generators.GeneratorRawPoints.__init__, generators.generators_from_config,
                metric_map.from_points, metric_map.from_numpy_layers,
                metric_map.load_metric_map):
@@ -339,7 +430,7 @@ def _cuda_or_skip():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", knn_kernel.SUPPORTED_K)
+@pytest.mark.parametrize("k", knn_kernel.COMPILED_K + (3, 100))
 def test_cuda_every_plan_matches_twin_at_edges(k):
     """Every compiled R and cluster size, and the wrappers, bit for bit:
     ties across part and cluster-rank boundaries with n not a multiple of

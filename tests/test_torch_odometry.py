@@ -262,7 +262,6 @@ def test_port_runs_with_jax_and_the_reference_blocked():
 
 @pytest.mark.parametrize("override, item", [
     ("mesh_data=2", "item 16"),
-    ("local_map_cand_motion_trans=0.05", "item 14"),
     ("local_map_nn_backend=grid", "item 17"),
 ])
 def test_unported_settings_raise(override, item):
@@ -278,6 +277,7 @@ def test_unported_settings_raise(override, item):
     ("deskew_in_loop=true", "FilterDeskew"),
     ("local_map_build_mode=sort", "FilterDeskew"),
     ("local_map_min_views=2,local_map_async_build=true", "FilterDeskew"),
+    ("local_map_cand_motion_trans=0.05", "FilterDeskew"),
 ])
 def test_settings_ported_since_build(override, first_filter):
     cfg = runner.build_config(overrides=runner.REALTIME + tuple(override.split(",")))
@@ -286,5 +286,34 @@ def test_settings_ported_since_build(override, first_filter):
         assert type(module.filter_pipeline.filters[0]).__name__ == first_filter
         if "min_views" in override:  # the host builder
             assert type(module._make_map_builder()).__name__ == "LocalMap"
+        if "cand_motion" in override:  # the motion-conditional refresh
+            from mola_fe_lidar_tpu_torch.models.config import AlignKind
+            stages = module._stages_for(AlignKind.LIDAR_ODOMETRY, True)
+            assert {s.cand_refresh_min_trans for s in stages} == {0.05}
     finally:
         module.shutdown()
+
+
+def test_spin_once_registers_queue_metrics():
+    """``spin_once`` opens its span and records the queue depth and the
+    nearby checks in flight (``tests/test_deskew_pyramid.py``'s case of
+    the reference)."""
+    from mola_fe_lidar_tpu_torch.obs.synthetic import SyntheticWorld, synthetic_sequence
+
+    w = SyntheticWorld(extent=60.0, n_world_points=30_000, points_per_scan=1024,
+                       max_range=35.0, seed=4)
+    obs, _ = synthetic_sequence(kind="straight", n_scans=3, world=w)
+    cfg = runner.default_config(overrides=("pointcloud_generator.0.params.capacity=1024",
+                                           "pointcloud_filter.0.params.output_capacity=1024"))
+    m = runner.build_module(cfg, device="cpu")
+    try:
+        for o in obs:
+            m.on_new_observation(o)
+            m.spin_once()
+        m.drain()
+        st = m.profiler.stats()
+    finally:
+        m.shutdown()
+    assert "counter:spinOnce.pending_scans" in st
+    assert "counter:spinOnce.nearby_inflight" in st
+    assert st["spinOnce"]["count"] == 3
