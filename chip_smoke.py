@@ -45,7 +45,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the counts reset and read around it; check that loop-closure checks ran;
    then optimize that replay's pose graph (:func:`pgo`, the back-end's
    Levenberg-Marquardt without and with the Cauchy kernel) and bound its
-   keyframe ATE;
+   keyframe ATE; then :func:`accuracy_tools`: the accuracy harness's
+   loop-closure ablation and false-loop-closure study on that graph, with
+   bounds, its PLY export and the runner CLI with ``--profile --viz-out``;
 6. the pairwise-registration path (:func:`pairwise`): the reference
    runner's quickstart configuration (``DEFAULT_CFG``: voxel downsample,
    point-to-point Horn, kNN = 6 point-to-plane) replayed over 40 synthetic
@@ -95,6 +97,12 @@ N_SCANS = 30  # full-resolution HDL-64 scans in each replay
 VARIANT_SCANS = 12  # scans through each other form of the scan step
 CKPT_SCAN = 15  # scans before the checkpoint
 LC_TOPO = 3  # keyframes back from which the loop-closure phase looks
+# the accuracy studies on the loop-closure replay: the Cauchy-optimized ATE
+# with one injected false loop closure within 10 % of the clean one, the
+# plain least-squares one more than 5 times it
+FALSE_LC_ROBUST_TOL = 0.10
+FALSE_LC_PLAIN_FACTOR = 5.0
+CLI_SCANS = 5  # quickstart scans through the runner CLI
 # each form of the scan step beside the default, and the proof its path ran
 VARIANTS = (
     ("default (pipelined)", ()),
@@ -671,7 +679,63 @@ def loop_closure(device, obs, gt):
     if not any(b == lanes for b, *_ in by_shape["nearest_neighbors"]):
         raise AssertionError(f"no {lanes}-lane Monte-Carlo batch was launched")
     pgo(res, obs, gt)
-    return counts, by_shape
+    return res, counts, by_shape
+
+
+def accuracy_tools(device, lc_res, obs, gt):
+    """Phase 5, continued: the accuracy harness's studies on the loop-
+    closure replay (``obs/accuracy.py``) -- its loop-closure factors must
+    lower the optimized scan ATE, and Cauchy PGO must hold one injected
+    false loop closure to within FALSE_LC_ROBUST_TOL of the clean ATE
+    while plain least squares is dragged more than FALSE_LC_PLAIN_FACTOR
+    times off --; the PLY export of that replay (``obs/viz.py``, two
+    keyframes) and the runner CLI with ``--profile --viz-out`` over
+    CLI_SCANS quickstart scans, with the counts reset and read around it.
+    Returns the CLI's launches per shape."""
+    import contextlib
+    import io
+    import tempfile
+
+    from mola_fe_lidar_tpu_torch.obs import accuracy, runner, viz
+
+    t0 = time.perf_counter()
+    abl = accuracy.lc_ablation_study(lc_res, obs, gt, "cauchy")
+    print(f"LC ablation (Cauchy PGO): {abl['n_lc_factors']} loop-closure factors, scan ATE "
+          f"{abl['ate_pgo_with_lc']} m with them, {abl['ate_pgo_without_lc']} m without")
+    if abl["n_lc_factors"] < 1 or not abl["ate_pgo_with_lc"] <= abl["ate_pgo_without_lc"]:
+        raise AssertionError(f"the loop-closure factors do not lower the optimized ATE: {abl}")
+    flc = accuracy.false_lc_study(lc_res, obs, gt, "cauchy")
+    clean = flc["ate_clean_robust"]
+    print(f"false LC {flc['injected_pair']}: scan ATE clean (Cauchy) {clean} m, poisoned plain "
+          f"{flc['ate_poisoned_plain']} m, poisoned Cauchy {flc['ate_poisoned_robust']} m")
+    if not (abs(flc["ate_poisoned_robust"] - clean) <= FALSE_LC_ROBUST_TOL * clean
+            and flc["ate_poisoned_plain"] > FALSE_LC_PLAIN_FACTOR * clean):
+        raise AssertionError(f"the false loop-closure study is outside its bounds: {flc}")
+    with tempfile.TemporaryDirectory() as d:
+        viz.export_run(f"{d}/export", lc_res["module"], max_keyframes=2)
+        sizes = {p.name: p.stat().st_size for p in sorted(Path(d, "export").iterdir())}
+        print(f"export_run (2 keyframes): {sizes} bytes")
+        if len(sizes) != 3 or "trajectory.ply" not in sizes or min(sizes.values()) < 200:
+            raise AssertionError(f"export_run wrote {sizes}")
+        _reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = runner.main(["--scans", str(CLI_SCANS), "--profile", "--viz-out",
+                              f"{d}/runner", "--device", str(device)])
+        _, by_shape = _read_counts()
+        text = out.getvalue()
+        summary = json.loads(text[:text.index("\n}\n") + 2])
+        report = text.split(f"PLY exports written to {d}/runner\n", 1)[-1].splitlines()
+        sizes = {p.name: p.stat().st_size for p in sorted(Path(d, "runner").iterdir())}
+        print(f"runner CLI --scans {CLI_SCANS} --profile --viz-out: rc {rc}, "
+              f"{summary['n_keyframes']} keyframes, scans_per_sec {summary['scans_per_sec']}, "
+              f"PLY {sizes} bytes")
+        print(f"  profiler report, first line: {report[0] if report else ''}")
+        if rc != 0 or summary["n_scans"] != CLI_SCANS or "trajectory.ply" not in sizes \
+                or len(report) < 2 or not report[0].strip():
+            raise AssertionError("the runner CLI's --profile / --viz-out output is missing")
+    print(f"accuracy tools: {time.perf_counter() - t0:.1f} s")
+    return by_shape
 
 
 def _timed_batches(fn, reps: int):
@@ -1091,7 +1155,8 @@ def main() -> int:
     main_res, counts, by_shape, main_stats = replay(device, obs, gt)
     scan_step_forms(device, obs, gt, main_res, main_stats)
     checkpoint_round_trip(device, obs)
-    lc_counts, lc_by_shape = loop_closure(device, obs, gt)
+    lc_res, lc_counts, lc_by_shape = loop_closure(device, obs, gt)
+    cli_by_shape = accuracy_tools(device, lc_res, obs, gt)
     launched = {}
     for shapes, unit in ((by_shape, "scan"), (lc_by_shape, "scan (loop-closure phase)")):
         for name, per_shape in shapes.items():
@@ -1102,6 +1167,9 @@ def main() -> int:
     loc_shapes, loc_counts = localizer(device, obs, gt)
     for key, val in loc_shapes.items():
         launched.setdefault(key, val)
+    for name, per_shape in cli_by_shape.items():
+        for key, c in per_shape.items():
+            launched.setdefault((name, key), (c, CLI_SCANS, "scan (runner CLI)"))
     # the localizer's unbatched searches against the 32k and 131k maps
     batched_rows = check_batched(device, launched, unbatched={
         key for key in loc_shapes if key[1][0] == 1 and key[1][2] >= 1 << 15})

@@ -39,6 +39,22 @@ def _round_capacity(n: int, multiple: int = 256) -> int:
     return max(multiple, -(-n // multiple) * multiple)
 
 
+def empty_cloud(capacity: int, attrs: tuple = (), dtype=torch.float32,
+                device="cuda") -> PointCloud:
+    """An all-padding cloud; ``attrs`` is ``((name, width), ...)``."""
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    return PointCloud(zeros(capacity, 3), zeros(capacity),
+                      {k: zeros(capacity, d) for k, d in attrs})
+
+
+def concat_clouds(a: PointCloud, b: PointCloud) -> PointCloud:
+    """Concatenate along the point axis (capacities add); only attributes
+    both clouds carry are kept."""
+    return PointCloud(torch.cat([a.xyz, b.xyz], dim=-2), torch.cat([a.mask, b.mask], dim=-1),
+                      {k: torch.cat([v, b.attrs[k]], dim=-2)
+                       for k, v in a.attrs.items() if k in b.attrs})
+
+
 def host_to_device(arr: np.ndarray, device) -> torch.Tensor:
     """A host array on ``device``. To a CUDA device the copy goes through
     pinned memory without blocking the host: a copy from pageable memory

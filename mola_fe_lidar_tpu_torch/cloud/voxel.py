@@ -29,6 +29,12 @@ _KEY_INVALID = 2**31 - 1
 _SCAN_BASE = 16
 
 
+def voxel_coords(xyz: torch.Tensor, res, origin: torch.Tensor) -> torch.Tensor:
+    """Integer cell coordinates [...,N,3] (int32) of points on a grid of
+    pitch ``res`` anchored at ``origin``."""
+    return torch.floor((xyz - origin) / res).to(torch.int32)
+
+
 class VoxelSort(NamedTuple):
     order: torch.Tensor       # i64[N] sorted position -> original index
     xyz: torch.Tensor         # f32[N,3] points in sorted order

@@ -45,6 +45,30 @@ def from_xyz_ypr(x, y, z, yaw, pitch, roll, dtype=torch.float32, device="cuda") 
     return Pose(R, torch.stack([x, y, z], dim=-1))
 
 
+def from_matrix(T, dtype=torch.float32, device="cuda") -> Pose:
+    """A homogeneous ``[..., 4, 4]`` transform as a Pose."""
+    T = torch.as_tensor(T, dtype=dtype, device=device)
+    return Pose(T[..., :3, :3], T[..., :3, 3])
+
+
+def to_matrix(p: Pose) -> torch.Tensor:
+    """The homogeneous ``[..., 4, 4]`` transform of a Pose."""
+    T = torch.zeros((*p.t.shape[:-1], 4, 4), dtype=p.t.dtype, device=p.t.device)
+    T[..., :3, :3] = p.R
+    T[..., :3, 3] = p.t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def to_xyz_ypr(p: Pose):
+    """Inverse of :func:`from_xyz_ypr` (gimbal-lock tolerant)."""
+    R = p.R
+    pitch = -torch.arcsin(torch.clamp(R[..., 2, 0], -1.0, 1.0))
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return p.t[..., 0], p.t[..., 1], p.t[..., 2], yaw, pitch, roll
+
+
 def hat(w: torch.Tensor) -> torch.Tensor:
     """so(3) hat operator: w[...,3] -> skew-symmetric [...,3,3]."""
     wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
@@ -73,6 +97,15 @@ def _sinc_coeffs(theta_sq: torch.Tensor):
     B = torch.where(small, 0.5 - theta_sq / 24.0, B_exact)
     C = torch.where(small, 1.0 / 6.0 - theta_sq / 120.0, C_exact)
     return A, B, C
+
+
+def so3_exp(w, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """Rodrigues: so(3) tangent [...,3] -> rotation matrix [...,3,3]."""
+    w = torch.as_tensor(w, dtype=dtype, device=device)
+    A, B, _ = _sinc_coeffs(torch.sum(w * w, dim=-1))
+    W = hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + A[..., None, None] * W + B[..., None, None] * (W @ W)
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
@@ -144,9 +177,19 @@ def inverse(p: Pose) -> Pose:
     return Pose(Rt, -(Rt @ p.t[..., None])[..., 0])
 
 
+def relative_to(a: Pose, b: Pose) -> Pose:
+    """Pose of ``a`` expressed in frame ``b``: b⁻¹ ∘ a (CPose3D ``a - b``)."""
+    return compose(inverse(b), a)
+
+
 def transform(p: Pose, pts: torch.Tensor) -> torch.Tensor:
     """Apply a pose to points [..., N, 3]."""
     return pts @ p.R.transpose(-1, -2) + p.t[..., None, :]
+
+
+def rotation_log(p: Pose) -> torch.Tensor:
+    """so(3) log of the rotation part."""
+    return so3_log(p.R)
 
 
 def rotation_angle(p: Pose) -> torch.Tensor:

@@ -3,15 +3,18 @@
 Builds the front-end by registry name, replays a dataset through it on a
 chosen device and reports the trajectory metrics; ``--pgo`` also optimizes
 the keyframe pose graph (``OptimizingBackend``) and reports ``*_pgo``
-metrics, and ``--out`` writes the keyframe trajectory in TUM format.
+metrics, ``--out`` writes the keyframe trajectory in TUM format,
+``--viz-out`` the trajectory and keyframe clouds as PLY files and
+``--profile`` prints the module's profiler report.
 
     python -m mola_fe_lidar_tpu_torch.obs.runner --dataset synthetic --scans 20
     python -m mola_fe_lidar_tpu_torch.obs.runner --dataset kitti --sequence 00 \
-        --kitti-root /data/kitti --device cuda --pgo --out traj.txt
+        --kitti-root /data/kitti --config mola_fe_lidar_tpu_torch/params/kitti-default.yaml \
+        --device cuda --pgo --out traj.txt
 
-Without ``--config`` the runner uses :func:`realtime_config`: the KITTI
-preset at the realtime operating point with the preset's nearby-keyframe
-and loop-closure search.
+Without ``--config`` the runner uses :data:`DEFAULT_CFG`, the reference
+runner's quickstart configuration; :func:`realtime_config` is the KITTI
+preset at the realtime operating point.
 """
 
 from __future__ import annotations
@@ -337,11 +340,17 @@ def save_trajectory_tum(path: str, kf_poses, backend) -> None:
                     f"{qx:.6f} {qy:.6f} {qz:.6f} {qw:.6f}\n")
 
 
+# summary keys the port prints beside the reference runner's
+SUMMARY_EXTRA_KEYS = ("n_nearby_edges", "n_loop_closures", "jobs_abandoned", "ate_rmse_scan",
+                      "scans_per_sec_steady")
+
+
 def parser() -> argparse.ArgumentParser:
     """The replay CLI's arguments."""
     ap = argparse.ArgumentParser(description="mola_fe_lidar_tpu_torch dataset replay")
     ap.add_argument("--config", type=str, default=None,
-                    help="module YAML (default: the realtime KITTI configuration)")
+                    help="module YAML (default: DEFAULT_CFG, the quickstart configuration: "
+                         "0.7 m voxel downsample, point-to-point then kNN point-to-plane)")
     ap.add_argument("--dataset", choices=["synthetic", "kitti"], default="synthetic")
     ap.add_argument("--sequence", type=str, default="00")
     ap.add_argument("--kitti-root", type=str, default=None)
@@ -357,13 +366,17 @@ def parser() -> argparse.ArgumentParser:
                     help="optimize the keyframe pose graph and report *_pgo metrics")
     ap.add_argument("--pgo-robust", choices=["none", "huber", "cauchy"], default="none",
                     help="IRLS kernel on non-odometry edges during --pgo")
+    ap.add_argument("--profile", action="store_true",
+                    help="print the hierarchical profiler report after the replay")
+    ap.add_argument("--viz-out", type=str, default=None,
+                    help="export the trajectory and keyframe clouds as PLY to this directory")
     return ap
 
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
 
-    cfg = load_yaml(args.config) if args.config else realtime_config()
+    cfg = load_yaml(args.config) if args.config else default_config()
     if args.dataset == "synthetic":
         import math
         from .synthetic import synthetic_sequence
@@ -378,17 +391,29 @@ def main(argv=None) -> int:
         gt = seq.gt_poses_velo
     res = run_replay(observations, cfg, gt_poses=gt, device=args.device, pgo=args.pgo,
                      pgo_robust=args.pgo_robust)
-    res["module"].shutdown()
-    summary = {k: v for k, v in res.items()
-               if k in ("n_scans", "n_keyframes", "n_factors", "n_nearby_edges",
-                        "n_loop_closures", "wall_s", "jobs_abandoned",
-                        "ate_rmse", "ate_rmse_scan", "ate_rmse_pgo", "ate_rmse_scan_pgo",
-                        "scans_per_sec_steady")}
-    summary["device"] = args.device
-    print(json.dumps(summary, indent=2, default=float))
-    if args.out:
-        save_trajectory_tum(args.out, res.get("kf_poses_pgo") or res["kf_poses"], res["backend"])
-        print(f"trajectory written to {args.out}")
+    module = res["module"]
+    try:
+        # the reference's summary keys, then the port's own
+        summary = {k: v for k, v in res.items()
+                   if k in ("n_scans", "n_keyframes", "n_factors", "wall_s",
+                            "ate_rmse", "rpe_trans", "rpe_rot",
+                            "ate_rmse_pgo", "ate_rmse_scan_pgo")}
+        summary["scans_per_sec"] = (res["n_scans"] or 0) / max(res["wall_s"], 1e-9)
+        summary.update({k: res[k] for k in SUMMARY_EXTRA_KEYS if k in res})
+        summary["device"] = args.device
+        print(json.dumps(summary, indent=2, default=float))
+        if args.out:
+            save_trajectory_tum(args.out, res.get("kf_poses_pgo") or res["kf_poses"],
+                                res["backend"])
+            print(f"trajectory written to {args.out}")
+        if args.viz_out:
+            from .viz import export_run
+            export_run(args.viz_out, module)
+            print(f"PLY exports written to {args.viz_out}")
+        if args.profile:
+            print(module.profiler.report())
+    finally:
+        module.shutdown()
     return 0
 
 

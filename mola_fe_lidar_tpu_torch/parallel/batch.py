@@ -12,6 +12,7 @@ not ported: ROADMAP Queue 1 item 16.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -22,14 +23,21 @@ from ..models.config import ICPParams
 from ..models.icp import ICPResult, align
 
 
-def batched_align(src_maps: MetricMap, tgt_maps: MetricMap, init_poses: se3.Pose,
-                  params: ICPParams, mesh: Optional[object] = None) -> ICPResult:
-    """Align lane b of ``src_maps`` onto lane b of ``tgt_maps`` from
-    ``init_poses[b]``; layers ``[N,3]`` are shared, ``[B,N,3]`` per lane."""
+def make_batched_align(params: ICPParams, mesh: Optional[object] = None):
+    """A batched align over the lane axis: ``run(src_maps, tgt_maps,
+    init_poses)`` aligns lane b of ``src_maps`` onto lane b of ``tgt_maps``
+    from ``init_poses[b]``; layers ``[N,3]`` are shared, ``[B,N,3]`` per
+    lane."""
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh for the batch axis is not ported (ROADMAP Queue 1 item 16)")
-    return align(src_maps, tgt_maps, init_poses, params)
+    return functools.partial(align, params=params)
+
+
+def batched_align(src_maps: MetricMap, tgt_maps: MetricMap, init_poses: se3.Pose,
+                  params: ICPParams, mesh: Optional[object] = None) -> ICPResult:
+    """One-shot convenience wrapper over :func:`make_batched_align`."""
+    return make_batched_align(params, mesh)(src_maps, tgt_maps, init_poses)
 
 
 def make_chunked_batched_align(params: ICPParams, chunk: int = 16):

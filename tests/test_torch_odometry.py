@@ -209,6 +209,7 @@ torch.set_num_threads(1)
 import numpy as np
 from mola_fe_lidar_tpu_torch.geometry import se3
 from mola_fe_lidar_tpu_torch.models import align, icp_settings_regular
+from mola_fe_lidar_tpu_torch.obs import accuracy, viz  # noqa: F401 -- the tools import too
 from mola_fe_lidar_tpu_torch.obs.hdl64 import hdl64_sequence
 from mola_fe_lidar_tpu_torch.obs.runner import default_config, realtime_config, run_replay
 from mola_fe_lidar_tpu_torch.obs.scan_pairs import make_pairs, stack_pairs
