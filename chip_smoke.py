@@ -103,6 +103,17 @@ LC_TOPO = 3  # keyframes back from which the loop-closure phase looks
 FALSE_LC_ROBUST_TOL = 0.10
 FALSE_LC_PLAIN_FACTOR = 5.0
 CLI_SCANS = 5  # quickstart scans through the runner CLI
+# the mesh phase: positions on the card, the map align's searches split over
+# P positions ((kind, k, sources, targets): the planes map, the edges map),
+# timed as the median of MESH_REPS calls; the sharded aligns' bounds against
+# the single-device align without the candidate cache
+MESH_POSITIONS = 4
+MESH_PS = (2, 4)
+MESH_SEARCHES = (("nn", 1, 8192, 32768), ("knn", 4, 8192, 32768), ("knn", 5, 8192, 32768),
+                 ("knn", 5, 2048, 8192))
+MESH_REPS = 7
+MESH_POSE_TOL_M = 1e-4
+MESH_QUALITY_TOL = 1e-5
 # each form of the scan step beside the default, and the proof its path ran
 VARIANTS = (
     ("default (pipelined)", ()),
@@ -639,6 +650,197 @@ def checkpoint_round_trip(device, obs):
         loaded.shutdown()
 
 
+def _median_ms(fn, reps: int = MESH_REPS) -> float:
+    """Median of ``reps`` single calls, each timed by CUDA events, after a
+    warm-up call."""
+    import statistics
+
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def mesh_searches(device, power):
+    """The mesh phase, step 1: ``tp_nearest_neighbors`` / ``tp_knn`` at the
+    map align's shapes (MESH_SEARCHES) with the target split over P in
+    MESH_PS positions, each bit-identical to the unsharded kernel and to
+    the twin, timed beside the unsharded kernel."""
+    import torch
+    from mola_fe_lidar_tpu_torch.cloud.metric_map import PointCloud, split_cloud
+    from mola_fe_lidar_tpu_torch.ops import knn_kernel, matching, nn_kernel, tp
+    from mola_fe_lidar_tpu_torch.parallel import mesh
+
+    gen = torch.Generator().manual_seed(3)
+    positions = mesh.devices("cuda")
+    for kind, k, n, m in MESH_SEARCHES:
+        src, sm = make_cloud(gen, n, 0.95, device)
+        tgt, tm = make_cloud(gen, m, 0.9, device)
+        if kind == "knn":
+            whole = lambda: knn_kernel.knn(src, sm, tgt, tm, k)
+            plain = matching.knn(src, sm, tgt, tm, k)
+        else:
+            whole = lambda: nn_kernel.nearest_neighbors(src, sm, tgt, tm)
+            plain = matching.nearest_neighbors(src, sm, tgt, tm)
+        want = whole()
+        line = [f"{kind} k={k} {n}x{m}: unsharded {_median_ms(whole):.4f} ms"]
+        for p in MESH_PS:
+            split = split_cloud(PointCloud(tgt, tm, {}), positions[:p])
+            if kind == "knn":
+                sharded = lambda: tp.tp_knn(src, sm, split.xyz, split.mask, k)
+            else:
+                sharded = lambda: tp.tp_nearest_neighbors(src, sm, split.xyz, split.mask)
+            got = sharded()
+            torch.cuda.synchronize()
+            if not (compare(got, want)[1] and compare(got, plain)[1]):
+                raise AssertionError(f"tp {kind} k={k} {n}x{m} P={p} is not bit-identical to the "
+                                     "unsharded kernel and the twin")
+            line.append(f"P={p} {_median_ms(sharded):.4f} ms")
+        print("mesh search, " + ", ".join(line) + f" (median of {MESH_REPS}; bit-identical to "
+              f"the unsharded kernel and the twin; {power})")
+
+
+def mesh_aligns(device, main_res):
+    """The mesh phase, step 2: ``make_sharded_align`` (model = 4) of the
+    replay's last scan onto its local map with the realtime preset's map
+    stages, and ``make_dp_tp_align`` (data = 2, model = 2) of its last 4
+    keyframes onto the map, each against the single-device align with the
+    candidate cache off."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from mola_fe_lidar_tpu_torch.frontend.odometry import _stack_maps
+    from mola_fe_lidar_tpu_torch.frontend.worldmodel import ANNOTATION_NAME_PC_LAYERS
+    from mola_fe_lidar_tpu_torch.geometry import se3, se3_np
+    from mola_fe_lidar_tpu_torch.models import align_pipeline
+    from mola_fe_lidar_tpu_torch.models.config import AlignKind
+    from mola_fe_lidar_tpu_torch.parallel import (make_dp_tp_align, make_mesh,
+                                                  make_sharded_align, mesh)
+
+    module = main_res["module"]
+    st = module.state
+    stages = module._stages_for(AlignKind.LIDAR_ODOMETRY, True)
+    no_cache = tuple(dataclasses.replace(s, matchers=tuple(
+        dataclasses.replace(mt, cand_k=0) for mt in s.matchers)) for s in stages)
+    positions = mesh.devices("cuda")
+
+    def chain(run, pose):
+        res = None
+        for st_ in stages:
+            res = run(st_, pose)
+            pose = res.pose
+        return res
+
+    def gap(a, b):
+        return (float((a.pose.t - b.pose.t).abs().max()),
+                float((a.quality - b.quality).abs().max()))
+
+    # one scan, TP over 4 positions, from 0.1 m / 0.01 rad off its pose
+    off = se3_np.compose((st.world_R, st.world_t), se3_np.exp(np.array([0.1, -0.05, 0, 0, 0, 0.01])))
+    guess = se3.Pose(torch.tensor(off[0], dtype=torch.float32, device=device),
+                     torch.tensor(off[1], dtype=torch.float32, device=device))
+    tp_mesh = make_mesh({"model": 4}, positions)
+    t0 = time.perf_counter()
+    tp_res = chain(lambda p, g: make_sharded_align(tp_mesh, p)(st.last_points, st.local_map, g),
+                   guess)
+    tp_res.quality.cpu()
+    t1 = time.perf_counter()
+    one = align_pipeline(st.last_points, st.local_map, guess, no_cache)
+    one.quality.cpu()
+    t2 = time.perf_counter()
+    dt, dq = gap(tp_res, one)
+    print(f"make_sharded_align (model=4) of the last scan onto the local map "
+          f"({ {n: pc.capacity for n, pc in st.local_map.items()} }): {1e3 * (t1 - t0):.1f} ms "
+          f"against {1e3 * (t2 - t1):.1f} ms on one device without the cache; pose gap {dt:.3g} m, "
+          f"quality gap {dq:.3g}, {int(tp_res.n_iterations)} iterations")
+    if not (dt <= MESH_POSE_TOL_M and dq <= MESH_QUALITY_TOL):
+        raise AssertionError(f"make_sharded_align is {dt} m / {dq} off the single-device align")
+
+    # DP x TP: the last 4 keyframes, 2 lanes a data position, each lane's
+    # map split over 2 model positions
+    kfs = sorted(main_res["kf_poses"])[-4:]
+    clouds = [module.worldmodel.annotation(kf, ANNOTATION_NAME_PC_LAYERS) for kf in kfs]
+    src = _stack_maps(clouds)
+    tgt = {name: type(pc)(pc.xyz.expand(4, *pc.xyz.shape), pc.mask.expand(4, *pc.mask.shape),
+                          {a: v.expand(4, *v.shape) for a, v in pc.attrs.items()})
+           for name, pc in st.local_map.items()}
+    poses = [main_res["kf_poses"][kf] for kf in kfs]
+    guesses = se3.Pose(torch.tensor(np.stack([R for R, _ in poses]), dtype=torch.float32,
+                                    device=device),
+                       torch.tensor(np.stack([t for _, t in poses]), dtype=torch.float32,
+                                    device=device) + 0.05)
+    dp_mesh = make_mesh({"data": 2, "model": 2}, positions)
+    t0 = time.perf_counter()
+    dp_res = chain(lambda p, g: make_dp_tp_align(dp_mesh, p)(src, tgt, g), guesses)
+    dp_res.quality.cpu()
+    t1 = time.perf_counter()
+    one = align_pipeline(src, st.local_map, guesses, no_cache)
+    dt, dq = gap(dp_res, one)
+    print(f"make_dp_tp_align (data=2, model=2) of 4 keyframes onto the local map: "
+          f"{1e3 * (t1 - t0):.1f} ms; pose gap {dt:.3g} m, quality gap {dq:.3g} against the "
+          f"single-device batch without the cache")
+    if not (dt <= MESH_POSE_TOL_M and dq <= MESH_QUALITY_TOL):
+        raise AssertionError(f"make_dp_tp_align is {dt} m / {dq} off the single-device align")
+
+
+def mesh_replay(device, obs, gt, main_res):
+    """The mesh phase, step 3: the replay's scans with ``mesh_data=2,
+    mesh_model=2``, counts reset and read around it. Returns (counts,
+    counts per shape)."""
+    import numpy as np
+    from mola_fe_lidar_tpu_torch.obs.runner import realtime_config
+
+    cfg = realtime_config()
+    cfg["params"].update(mesh_data=2, mesh_model=2)
+    res, counts, by_shape, stats = run_phase(device, obs, gt, cfg,
+                                             "mesh replay (mesh_data=2, mesh_model=2)")
+    if res["module"]._mesh is None or res["module"]._mesh.shape != {"data": 2, "model": 2}:
+        raise AssertionError("the mesh replay built no 2 x 2 mesh")
+    dp = stats.get("counter:checkNonAdjacent.nearby.dp_lanes", {"count": 0})
+    if dp["count"] < 1:
+        raise AssertionError("no nearby batch ran over the data axis")
+    if res["n_keyframes"] != main_res["n_keyframes"]:
+        raise AssertionError(f"{res['n_keyframes']} keyframes on the mesh, "
+                             f"{main_res['n_keyframes']} on one device")
+    common = set(res["kf_poses"]) & set(main_res["kf_poses"])
+    worst = max(float(np.linalg.norm(np.asarray(res["kf_poses"][k][1])
+                                     - np.asarray(main_res["kf_poses"][k][1]))) for k in common)
+    print(f"  mesh vs one device: {res['n_keyframes']} keyframes each, largest keyframe "
+          f"translation gap {worst:.4g} m; steady {res['scans_per_sec_steady']} vs "
+          f"{main_res['scans_per_sec_steady']} scans/s, scan ATE {res['ate_rmse_scan']} vs "
+          f"{main_res['ate_rmse_scan']} m; {dp['count']} nearby batches over the data axis "
+          f"({dp['max']:.0f} lanes)")
+    return counts, by_shape
+
+
+def mesh_phase(device, obs, gt, main_res, power):
+    """The mesh phase: MESH_POSITIONS positions on the card
+    (``force_device_count``), reset after. Returns the mesh replay's
+    (counts, counts per shape)."""
+    from mola_fe_lidar_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    previous = mesh.force_device_count(MESH_POSITIONS)
+    try:
+        print(f"mesh phase: {MESH_POSITIONS} positions {mesh.devices('cuda')}")
+        mesh_searches(device, power)
+        mesh_aligns(device, main_res)
+        out = mesh_replay(device, obs, gt, main_res)
+    finally:
+        mesh.force_device_count(previous)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def pgo(res, obs, gt):
     """Phase 5, continued: the loop-closure replay's pose graph optimized
     by the back-end without and with the Cauchy kernel."""
@@ -1131,7 +1333,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    power = smi.stdout.strip().splitlines()[0]
+    print(power)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -1157,8 +1360,10 @@ def main() -> int:
     checkpoint_round_trip(device, obs)
     lc_res, lc_counts, lc_by_shape = loop_closure(device, obs, gt)
     cli_by_shape = accuracy_tools(device, lc_res, obs, gt)
+    mesh_counts, mesh_by_shape = mesh_phase(device, obs, gt, main_res, power)
     launched = {}
-    for shapes, unit in ((by_shape, "scan"), (lc_by_shape, "scan (loop-closure phase)")):
+    for shapes, unit in ((by_shape, "scan"), (lc_by_shape, "scan (loop-closure phase)"),
+                         (mesh_by_shape, "scan (mesh replay)")):
         for name, per_shape in shapes.items():
             for key, c in per_shape.items():
                 launched.setdefault((name, key), (c, N_SCANS, unit))
@@ -1170,13 +1375,18 @@ def main() -> int:
     for name, per_shape in cli_by_shape.items():
         for key, c in per_shape.items():
             launched.setdefault((name, key), (c, CLI_SCANS, "scan (runner CLI)"))
-    # the localizer's unbatched searches against the 32k and 131k maps
+    # the localizer's unbatched searches against the 32k and 131k maps, and
+    # the mesh replay's target slices
+    single = {(name, key) for name, per_shape in by_shape.items() for key in per_shape}
     batched_rows = check_batched(device, launched, unbatched={
-        key for key in loc_shapes if key[1][0] == 1 and key[1][2] >= 1 << 15})
+        key for key in loc_shapes if key[1][0] == 1 and key[1][2] >= 1 << 15} | {
+        (name, key) for name, per_shape in mesh_by_shape.items() for key in per_shape
+        if key[0] == 1 and (name, key) not in single})
     for row in rows:
         row["launches"] = counts[row["name"]]
         row["launches_lc_phase"] = lc_counts[row["name"]]
         row["launches_localizer_phase"] = loc_counts[row["name"]]
+        row["launches_mesh_phase"] = mesh_counts[row["name"]]
         for shape in row["shapes"]:
             c, per, unit = launched.get(
                 (row["name"], (1, shape["n"], shape["m"], shape["k"])), (0, N_SCANS, "scan"))

@@ -9,12 +9,11 @@ Pallas kernels of the main path are hand-written CUDA under ``csrc/``
 first use on a CUDA tensor. CPU tensors take each kernel's plain PyTorch
 twin (``ops/matching.py``).
 
-Ported so far (the scan-to-local-map main path): ``geometry``, ``cloud``,
-``ops``, ``filters`` (raw generator, deskew, edges/planes with prefix-sum
-voxel stats), ``solve`` (Gauss-Newton, paired ratio), ``models`` (ICP with
-the point-to-plane-normals and point-to-line matchers and the candidate
-cache), ``frontend`` (``LidarOdometry``, the hash-built ``DeviceLocalMap``)
-and ``obs.runner``. Settings outside that path raise ``NotImplementedError``.
+Every module of the JAX package has its counterpart here (``geometry``,
+``cloud``, ``ops``, ``filters``, ``solve``, ``models``, ``parallel`` with
+the DP/TP device meshes, ``frontend``, ``obs``), apart from what ROADMAP
+Queue 1 item 17 decided not to port; ``nn_backend: grid`` raises
+``NotImplementedError`` naming that item.
 """
 
 import torch

@@ -11,7 +11,7 @@ format of ``save_metric_map`` / ``load_metric_map`` is the reference's.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +33,31 @@ class PointCloud(NamedTuple):
 
 
 MetricMap = Dict[str, PointCloud]
+
+
+class ShardedCloud(NamedTuple):
+    """A layer split along its point axis into contiguous slices, one per
+    position of a mesh axis (each slice on its position's device): the
+    target layer of a tensor-parallel align (``ops/tp.py``)."""
+    xyz: Tuple[torch.Tensor, ...]               # each f32[..., M/P, 3]
+    mask: Tuple[torch.Tensor, ...]              # each f32[..., M/P]
+    attrs: Dict[str, Tuple[torch.Tensor, ...]]  # each f32[..., M/P, D]
+
+
+def split_cloud(pc: PointCloud, devices) -> ShardedCloud:
+    """``pc``'s point axis cut into ``len(devices)`` equal contiguous
+    slices, slice i on ``devices[i]``: a view where it is already there,
+    a copy elsewhere. The capacity must divide by the number of slices."""
+    p, m = len(devices), pc.capacity
+    if m % p:
+        raise ValueError(f"a layer of capacity {m} does not split into {p} equal slices")
+    size = m // p
+
+    def cut(x, dim):
+        return tuple(x.narrow(dim, i * size, size).to(dev) for i, dev in enumerate(devices))
+
+    return ShardedCloud(cut(pc.xyz, -2), cut(pc.mask, -1),
+                        {k: cut(v, -2) for k, v in pc.attrs.items()})
 
 
 def _round_capacity(n: int, multiple: int = 256) -> int:

@@ -39,12 +39,20 @@ submap around the candidate (``_check_non_adjacent``). Both run on a
 two-worker pool beside the scan thread; accepted results become factors
 and graph edges.
 
-Every setting of the reference's front-end is ported except the device
-meshes (``mesh_data``/``mesh_model``), which raise ``NotImplementedError``
-from :meth:`LidarOdometry.initialize` naming the ROADMAP item that ports
-them. ``precompile_rare_paths`` is accepted and does nothing: the port
-compiles no programs, and :meth:`LidarOdometry.warm_start` builds the CUDA
-kernels and runs every primary program once.
+Every setting of the reference's front-end is ported.
+``precompile_rare_paths`` is accepted and does nothing: the port compiles
+no programs, and :meth:`LidarOdometry.warm_start` builds the CUDA kernels
+and runs every primary program once.
+
+Device mesh (``mesh_data`` x ``mesh_model`` positions of
+``parallel/mesh.py::devices``, the chip analogue of the reference's worker
+fan-out): ``mesh_data`` > 1 splits the lanes of the nearby batch and of the
+loop-closure Monte-Carlo batch over a ``data`` axis (the nearby batch pads
+to a multiple of it, the Monte-Carlo sample count rounds up to one);
+``mesh_model`` > 1 splits the map align's target (the rolling local map,
+split anew after every rebuild) on its point axis over a ``model`` axis,
+without the candidate cache. With fewer positions than the mesh needs the
+module warns and runs on its one device, as the reference does.
 
 Threads and streams: the pool's jobs launch their kernels on the same CUDA
 stream as the scan step (each thread's current stream is the device's
@@ -78,7 +86,9 @@ from ..models.config import AlignKind
 from ..models.icp import (_CAND_KINDS, _CAND_KNN_KINDS, ICPResult, align_pipeline,
                           check_params)
 from ..models.presets import icp_cases_kitti
-from ..parallel.batch import monte_carlo_guesses
+from ..parallel import mesh as mesh_mod
+from ..parallel.batch import data_parallel, monte_carlo_guesses
+from ..parallel.distributed import shard_points
 from ..utils.config import DEG2RAD, yaml_get
 from ..utils.profiler import ProfilerEntry
 from .backend import (AdvertiseLocalization, FactorRelativePose3, HostPose,
@@ -277,14 +287,10 @@ class LidarOdometryParameters:
     nearby_cand_k: int = 4
     max_sensor_speed: float = 30.0
     max_sensor_rot_rate: float = 2.0
-
-
-# settings of the reference that select paths this port does not have yet:
-# (key, default, "is ported" test, ROADMAP item)
-_UNPORTED = (
-    ("mesh_data", 1, lambda v: int(v) <= 1, "Queue 1 item 16 (DP/TP meshes)"),
-    ("mesh_model", 1, lambda v: int(v) <= 1, "Queue 1 item 16 (DP/TP meshes)"),
-)
+    # device mesh: data positions for the search's batches, model positions
+    # for the map align's target (1/1 = one device)
+    mesh_data: int = 1
+    mesh_model: int = 1
 
 
 @dataclass
@@ -347,6 +353,10 @@ class LidarOdometry(FrontEndBase):
         self._map_build_lock = threading.Lock()
         self._map_build_inflight = False
         self._map_build_dirty = False
+        # device mesh (``initialize``) and the local map split over its
+        # model axis: (the map, its split)
+        self._mesh = None
+        self._map_split = (None, None)
 
     # ------------------------------------------------------------------
     def initialize(self, cfg: Dict[str, Any]) -> None:
@@ -382,9 +392,6 @@ class LidarOdometry(FrontEndBase):
         if p.local_map_build_mode not in ("sort", "hash"):
             raise ValueError(f"local_map_build_mode must be sort|hash, "
                              f"got {p.local_map_build_mode!r}")
-        for key, default, ported, item in _UNPORTED:
-            if not ported(yaml_get(c, key, default=default)):
-                raise NotImplementedError(f"{key}={c[key]!r} is not ported (ROADMAP {item})")
 
         self.icp_cases = {}
         for key, kind in (("icp_settings_with_vel", AlignKind.LIDAR_ODOMETRY),
@@ -417,6 +424,18 @@ class LidarOdometry(FrontEndBase):
         self.filter_pipeline = FilterPipeline.from_config(filt_cfg)
         if self.worldmodel is None:
             self.worldmodel = self.find_service(WorldModel) or WorldModel(device=self.device)
+
+        self._mesh = None
+        if p.mesh_data > 1 or p.mesh_model > 1:
+            need = p.mesh_data * p.mesh_model
+            have = mesh_mod.devices(self.device.type)
+            if len(have) >= need:
+                self._mesh = mesh_mod.make_mesh({"data": p.mesh_data, "model": p.mesh_model}, have)
+                self.log.info("device mesh: data=%d model=%d", p.mesh_data, p.mesh_model)
+            else:
+                self.log.warning("mesh data=%d model=%d needs %d devices, found %d — "
+                                 "falling back to single-device",
+                                 p.mesh_data, p.mesh_model, need, len(have))
 
     def reset(self) -> None:
         """Start over from an empty state (keyframes in the world model
@@ -857,6 +876,10 @@ class LidarOdometry(FrontEndBase):
         on the host. Returns (layers, ICPResult)."""
         pp = self.params
         stages = self._stages_for(kind, use_map)
+        if use_map and self._mesh is not None and pp.mesh_model > 1:
+            # tensor parallel: the map's point axis over the "model" axis
+            stages = tuple(dataclasses.replace(s, shard_axis="model") for s in stages)
+            target = self._split_map(target)
         res = align_pipeline(mm, target, se3.Pose(self._on_device(guess_R),
                                                   self._on_device(guess_t)), stages)
         dsk = self._deskew_filter()
@@ -882,6 +905,35 @@ class LidarOdometry(FrontEndBase):
             res = align_pipeline(mm, target, res.pose, refine)
             xi_cur = xi_new
         return mm, res
+
+    def _split_map(self, local_map: MetricMap) -> MetricMap:
+        """The local map split over the mesh's model axis; split once per
+        map (every rebuild makes a new one), views where a position is the
+        module's device."""
+        if self._map_split[0] is not local_map:
+            self._map_split = (local_map,
+                               shard_points(local_map, self._mesh.axis_devices("model")))
+        return self._map_split[1]
+
+    def _dp_pad(self, n: int) -> int:
+        """Round a batch size up to a multiple of the data-axis size."""
+        d = self.params.mesh_data if self._mesh is not None else 1
+        return -(-n // max(d, 1)) * max(d, 1)
+
+    def _dp_packed_align(self, kind: str, src_map, tgt_map, guess_R, guess_t,
+                         stages) -> torch.Tensor:
+        """``_packed_align`` of a ``kind`` ("nearby" or "lc") batch; on a
+        data mesh (the reference's ``_dp_shard`` and its jitted batch) its
+        lanes split over the "data" axis (layers ``[N,3]`` go to every
+        position whole), the packed rows back on the module's device in
+        lane order, and the counter ``checkNonAdjacent.{kind}.dp_lanes``
+        records the lanes."""
+        if self._mesh is None or self.params.mesh_data <= 1:
+            return _packed_align(src_map, tgt_map, guess_R, guess_t, stages)
+        out = data_parallel(self._mesh, lambda s, t, R, tt: _packed_align(s, t, R, tt, stages),
+                            src_map, tgt_map, guess_R, guess_t)
+        self.profiler.register_user_measure(f"checkNonAdjacent.{kind}.dp_lanes", out.shape[0])
+        return out.to(self.device)
 
     def _on_device(self, x) -> torch.Tensor:
         return host_to_device(np.asarray(x, np.float32), self.device)
@@ -1149,7 +1201,7 @@ class LidarOdometry(FrontEndBase):
         # source side only: the target keeps full density, the scale of the
         # paired-ratio goodness
         clouds = [_decimate_layers(c, p.nearby_decimate) for c in clouds]
-        k_pad = max(1, p.max_nearby_align_checks)
+        k_pad = self._dp_pad(max(1, p.max_nearby_align_checks))
         clouds = (clouds + [clouds[0]] * k_pad)[:k_pad]
         keep = keep[:k_pad]
         try:
@@ -1165,8 +1217,8 @@ class LidarOdometry(FrontEndBase):
         prof = self.profiler
         prof.enter("checkNonAdjacent.nearby_batch_align")
         try:
-            flats = _packed_align(to_pcs, cur_pc, gRs, gts,
-                                  self._nearby_stages()).cpu().numpy()  # one readback
+            flats = self._dp_packed_align("nearby", to_pcs, cur_pc, gRs, gts,
+                                          self._nearby_stages()).cpu().numpy()  # one readback
         finally:
             prof.leave("checkNonAdjacent.nearby_batch_align")
         for i in range(k_real):
@@ -1270,13 +1322,14 @@ class LidarOdometry(FrontEndBase):
             guesses = monte_carlo_guesses(
                 torch.Generator().manual_seed(mc_seed),
                 se3.Pose(self._on_device(center[0]), self._on_device(center[1])),
-                p.loop_closure_montecarlo_samples,
+                # on a data mesh the count rounds UP to fill every position
+                self._dp_pad(p.loop_closure_montecarlo_samples),
                 0.1 * p.max_dist_to_loop_closure, 2.0 * DEG2RAD)
             prof = self.profiler
             prof.enter("checkNonAdjacent.lc_batch_align")
             try:
-                flats = _packed_align(src_pc, tgt_pc, guesses.R, guesses.t,
-                                      self.icp_cases[AlignKind.LOOP_CLOSURE]).cpu().numpy()
+                flats = self._dp_packed_align("lc", src_pc, tgt_pc, guesses.R, guesses.t,
+                                              self.icp_cases[AlignKind.LOOP_CLOSURE]).cpu().numpy()
             finally:
                 prof.leave("checkNonAdjacent.lc_batch_align")
             out = _unpack_icp_result(flats[int(np.argmax(flats[:, 48]))])

@@ -20,6 +20,14 @@ Nearest-neighbour searches go through the hand-written kernels
 twins for CPU tensors: every ``nn_backend`` of the reference except
 ``"grid"`` is the same exact search here.
 
+Tensor parallelism (``shard_axis``, the reference's ``shard_map`` over a
+``model`` axis, ``parallel/distributed.py``): every target layer is a
+``ShardedCloud`` (its point axis split over the axis's positions) and every
+search and gather of a target goes through ``ops/tp.py``; the candidate
+cache is off, as in the reference. A symmetric quality's reverse direction
+pairs the whole target, gathered to the source's device (the reference
+pairs one slice there, ROADMAP Queue 3).
+
 The reference runs the whole loop as one ``lax.while_loop``. Here the host
 reads the iteration count and the convergence flag once per block of
 ``cand_refresh`` iterations (4 for the plain loop); inside a block,
@@ -44,9 +52,9 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..cloud.metric_map import MetricMap, PointCloud
+from ..cloud.metric_map import MetricMap, PointCloud, ShardedCloud
 from ..geometry import se3
-from ..ops import eigen3, knn_kernel, nn_kernel
+from ..ops import eigen3, knn_kernel, nn_kernel, tp
 from ..ops.matching import NNResult
 from ..solve import gauss_newton, horn, olae, robust
 from ..solve import quality as quality_mod
@@ -102,14 +110,23 @@ def check_params(params: ICPParams) -> None:
     if params.solver.kind != "gauss_newton" and not any(
             m.kind == "point2point" for m in params.matchers):
         raise ValueError(f"{params.solver.kind} solver needs at least one point2point matcher")
-    if params.shard_axis is not None:
-        raise NotImplementedError(
-            "tensor-parallel align is not ported (ROADMAP Queue 1 item 16)")
     if params.weights.use_robust_kernel and params.weights.robust_kernel not in robust.ROBUST_KERNELS:
         raise ValueError(f"unknown robust kernel {params.weights.robust_kernel!r}")
     for q in params.quality:
         if q.kind != "paired_ratio":
             raise ValueError(f"unknown quality kind {q.kind!r}")
+
+
+def _check_sharding(params: ICPParams, tgt_map) -> None:
+    """Under ``shard_axis`` every target layer the stages read is split
+    over the mesh, and split only then."""
+    layers = {m.tgt_layer for m in params.matchers} | {q.tgt_layer for q in params.quality}
+    for name in layers:
+        if isinstance(tgt_map[name], ShardedCloud) != (params.shard_axis is not None):
+            raise ValueError(
+                f"target layer {name!r}: shard_axis={params.shard_axis!r} needs the target "
+                "split over the mesh's positions exactly when it is set "
+                "(parallel.make_sharded_align)")
 
 
 def _cand_eligible(m: Matcher) -> bool:
@@ -194,27 +211,39 @@ def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
     act = _matcher_active(m, it)[..., None]
     f32 = sp.dtype
 
-    def nn1():
-        return (_nn_from_cands(sp, tgt, cand_idx) if cand_idx is not None
-                else _nn_1(sp, src.mask, tgt))
+    if isinstance(tgt, ShardedCloud):
+        def nn1():
+            return tp.tp_nearest_neighbors(sp, src.mask, tgt.xyz, tgt.mask)
 
-    def nnk():
-        if cand_idx is not None:
-            return _knn_from_cands(sp, tgt, cand_idx, m.knn)
-        return knn_kernel.knn(_c(sp), _c(src.mask), _c(tgt.xyz), _c(tgt.mask), m.knn)
+        def nnk():
+            return tp.tp_knn(sp, src.mask, tgt.xyz, tgt.mask, m.knn)
+
+        take = tp.tp_gather_points
+    else:
+        def nn1():
+            return (_nn_from_cands(sp, tgt, cand_idx) if cand_idx is not None
+                    else _nn_1(sp, src.mask, tgt))
+
+        def nnk():
+            if cand_idx is not None:
+                return _knn_from_cands(sp, tgt, cand_idx, m.knn)
+            return knn_kernel.knn(_c(sp), _c(src.mask), _c(tgt.xyz), _c(tgt.mask), m.knn)
+
+        def take(x, idx):
+            return _take(tgt, x, idx)
 
     if m.kind == "point2point":
         nn = nn1()
-        q = _take(tgt, tgt.xyz, nn.idx.long())
+        q = take(tgt.xyz, nn.idx.long())
         w = src.mask * (nn.dist < m.distance_threshold).to(f32) * act
         return _Pairings(src.xyz, q, torch.zeros_like(q), w, False)
 
     if m.kind == "point2plane_normals":
         nn = nn1()
         sel = nn.idx.long()
-        q = _take(tgt, tgt.xyz, sel)
-        normals = _take(tgt, tgt.attrs["normal"], sel)
-        gate = (_take(tgt, tgt.attrs["planarity"], sel)[..., 0] if "planarity" in tgt.attrs
+        q = take(tgt.xyz, sel)
+        normals = take(tgt.attrs["normal"], sel)
+        gate = (take(tgt.attrs["planarity"], sel)[..., 0] if "planarity" in tgt.attrs
                 else torch.ones_like(nn.dist))
         w = src.mask * (nn.dist < m.distance_threshold).to(f32) * gate * act
         return _Pairings(src.xyz, q, normals, w)
@@ -223,10 +252,10 @@ def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
         # Generalized ICP: the residual whitened by S = C_q + R C_p Rᵀ. The
         # rows of M⁻¹ (M = chol(S)) satisfy Σ lₖlₖᵀ = S⁻¹: three plane rows
         # a pairing whose non-unit normals carry the information weight
-        nn = _nn_1(sp, src.mask, tgt)
+        nn = nn1()
         sel = nn.idx.long()
-        q = _take(tgt, tgt.xyz, sel)
-        Cq = _take(tgt, tgt.attrs["cov"], sel).reshape(*q.shape[:-1], 3, 3)
+        q = take(tgt.xyz, sel)
+        Cq = take(tgt.attrs["cov"], sel).reshape(*q.shape[:-1], 3, 3)
         Cp = src.attrs["cov"].reshape(*src.xyz.shape[:-1], 3, 3)
         R = pose.R[..., None, :, :]
         Minv = eigen3.invert_lower_3x3(eigen3.cholesky_3x3(Cq + R @ Cp @ R.transpose(-1, -2)))
@@ -239,7 +268,7 @@ def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
         # LOAM-style edge matching: line fit to the kNN neighbourhood,
         # linearity gate, two plane rows spanning the line's normal plane
         nn = nnk()
-        centroid, cov, evs, n_valid = _knn_fit(_take(tgt, tgt.xyz, nn.idx.long()), nn.dist)
+        centroid, cov, evs, n_valid = _knn_fit(take(tgt.xyz, nn.idx.long()), nn.dist)
         dirv = eigen3.largest_eigenvector_3x3(cov, evs)
         linear = evs[..., 2] >= (1.0 / max(m.plane_eigen_threshold, 1e-3)) * torch.clamp(
             evs[..., 1], min=1e-9)
@@ -259,7 +288,7 @@ def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
 
     if m.kind == "point2plane_knn":
         nn = nnk()
-        centroid, cov, evs, n_valid = _knn_fit(_take(tgt, tgt.xyz, nn.idx.long()), nn.dist)
+        centroid, cov, evs, n_valid = _knn_fit(take(tgt.xyz, nn.idx.long()), nn.dist)
         # an exactly collinear neighbourhood passes the planar gate but has
         # no normal: its +z fallback is gated out by ``well``
         normal, well = eigen3.smallest_eigenvector_3x3(cov, evs, return_valid=True)
@@ -362,9 +391,15 @@ def _quality(pose, src_map, tgt_map, params: ICPParams) -> torch.Tensor:
         if qc.max_points and n > qc.max_points:
             sel = _quality_subsample(n, qc.max_points, dev)
             sxyz, smask = sxyz[..., sel, :], smask[..., sel]
-        nn = _nn_1(se3.transform(pose, sxyz), smask, tgt)
+        sp = se3.transform(pose, sxyz)
+        sharded = isinstance(tgt, ShardedCloud)
+        nn = (tp.tp_nearest_neighbors(sp, smask, tgt.xyz, tgt.mask) if sharded
+              else _nn_1(sp, smask, tgt))
         ratio = quality_mod.paired_ratio(nn.dist, smask, qc.threshold_distance)
         if qc.symmetric:
+            if sharded:  # the whole target, on the source's device
+                tgt = PointCloud(torch.cat([x.to(dev) for x in tgt.xyz], dim=-2),
+                                 torch.cat([x.to(dev) for x in tgt.mask], dim=-1), {})
             back = se3.transform(se3.inverse(pose), tgt.xyz)
             nn_r = _nn_1(back, tgt.mask, src)
             ratio = torch.maximum(ratio, quality_mod.paired_ratio(
@@ -458,17 +493,25 @@ def _freeze_history(active, new: _Anderson, old: _Anderson) -> _Anderson:
 
 def _lift(mm: MetricMap, batch: int) -> MetricMap:
     """Every layer with a leading lane axis: one-cloud layers become
-    stride-0 expands shared by all lanes."""
-    out = {}
-    for name, pc in mm.items():
+    stride-0 expands shared by all lanes (a split layer slice by slice)."""
+    def lift(name, pc):
         if pc.xyz.dim() == 3:
             if pc.xyz.shape[0] != batch:
                 raise ValueError(f"layer {name!r} has {pc.xyz.shape[0]} lanes, the poses {batch}")
-            out[name] = pc
+            return pc
+        return PointCloud(pc.xyz.expand(batch, *pc.xyz.shape),
+                          pc.mask.expand(batch, *pc.mask.shape),
+                          {k: v.expand(batch, *v.shape) for k, v in pc.attrs.items()})
+
+    out = {}
+    for name, pc in mm.items():
+        if isinstance(pc, ShardedCloud):
+            parts = [lift(name, PointCloud(x, m, {k: v[i] for k, v in pc.attrs.items()}))
+                     for i, (x, m) in enumerate(zip(pc.xyz, pc.mask))]
+            out[name] = ShardedCloud(tuple(q.xyz for q in parts), tuple(q.mask for q in parts),
+                                     {k: tuple(q.attrs[k] for q in parts) for k in pc.attrs})
         else:
-            out[name] = PointCloud(pc.xyz.expand(batch, *pc.xyz.shape),
-                                   pc.mask.expand(batch, *pc.mask.shape),
-                                   {k: v.expand(batch, *v.shape) for k, v in pc.attrs.items()})
+            out[name] = lift(name, pc)
     return out
 
 
@@ -482,7 +525,10 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
     lanes = tuple(init_pose.t.shape[:-1])
     if lanes:
         src_map, tgt_map = _lift(src_map, lanes[0]), _lift(tgt_map, lanes[0])
-    elig = tuple(i for i, m in enumerate(params.matchers) if _cand_eligible(m))
+    _check_sharding(params, tgt_map)
+    # no candidate cache under tensor parallelism, as in the reference
+    elig = () if params.shard_axis is not None else tuple(
+        i for i, m in enumerate(params.matchers) if _cand_eligible(m))
     uses_cands = bool(elig)
     if params.anderson_m > 0 and uses_cands:
         raise ValueError(

@@ -4,8 +4,11 @@ Builds the front-end by registry name, replays a dataset through it on a
 chosen device and reports the trajectory metrics; ``--pgo`` also optimizes
 the keyframe pose graph (``OptimizingBackend``) and reports ``*_pgo``
 metrics, ``--out`` writes the keyframe trajectory in TUM format,
-``--viz-out`` the trajectory and keyframe clouds as PLY files and
-``--profile`` prints the module's profiler report.
+``--viz-out`` the trajectory and keyframe clouds as PLY files,
+``--profile`` prints the module's profiler report and ``--mesh
+data=N[,model=M]`` runs the front-end on a device mesh (``mesh_data`` /
+``mesh_model``); ``--device cpu`` lays 8 positions over the CPU, as the
+reference's ``--cpu`` makes 8 virtual CPU devices.
 
     python -m mola_fe_lidar_tpu_torch.obs.runner --dataset synthetic --scans 20
     python -m mola_fe_lidar_tpu_torch.obs.runner --dataset kitti --sequence 00 \
@@ -28,10 +31,12 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..frontend import odometry as _odometry  # noqa: F401 -- registers LidarOdometry
 from ..frontend.backend import OptimizingBackend
 from ..frontend.module_base import MODULE_REGISTRY
+from ..parallel import mesh
 from ..utils.config import load_yaml
 from .metrics import ate_rmse, kitti_segment_errors, rpe_rmse
 
@@ -370,13 +375,35 @@ def parser() -> argparse.ArgumentParser:
                     help="print the hierarchical profiler report after the replay")
     ap.add_argument("--viz-out", type=str, default=None,
                     help="export the trajectory and keyframe clouds as PLY to this directory")
+    ap.add_argument("--mesh", type=str, default=None,
+                    help="device mesh, e.g. 'data=4' or 'data=2,model=2': splits the nearby / "
+                         "loop-closure batches over 'data' and the map align's target points "
+                         "over 'model'; with fewer devices the module warns and runs on one")
     return ap
 
 
 def main(argv=None) -> int:
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    if torch.device(args.device).type != "cpu":
+        return _main(ap, args)
+    previous = mesh.force_device_count(8)  # the CPU as 8 positions
+    try:
+        return _main(ap, args)
+    finally:
+        mesh.force_device_count(previous)
 
+
+def _main(ap: argparse.ArgumentParser, args) -> int:
     cfg = load_yaml(args.config) if args.config else default_config()
+    if args.mesh:
+        cfg = copy.deepcopy(cfg)
+        params = cfg.setdefault("params", {})
+        for part in args.mesh.split(","):
+            axis, _, n = part.partition("=")
+            if axis.strip() not in ("data", "model") or not n.strip().isdigit():
+                ap.error(f"bad --mesh component {part!r} (want data=N[,model=M])")
+            params[f"mesh_{axis.strip()}"] = int(n)
     if args.dataset == "synthetic":
         import math
         from .synthetic import synthetic_sequence

@@ -6,8 +6,11 @@ lane axis: every nearest-neighbour search of an iteration is one K1/K2
 launch for all lanes, and each lane freezes once it has converged. Layers
 given as one cloud are shared by every lane without a copy.
 
-Multi-device sharding of the batch (the reference's ``mesh`` argument) is
-not ported: ROADMAP Queue 1 item 16.
+With a mesh (data parallelism), the lanes split into one contiguous slice
+per position of the data axis, each slice one batched align on its
+position, and the results come back to the lead position in lane order.
+Each lane freezes on its own, so a lane's result does not depend on the
+split.
 """
 
 from __future__ import annotations
@@ -21,17 +24,50 @@ from ..cloud.metric_map import MetricMap
 from ..geometry import se3
 from ..models.config import ICPParams
 from ..models.icp import ICPResult, align
+from .mesh import Mesh, gather_batch, run_per_position, shard_batch, tree_map
 
 
-def make_batched_align(params: ICPParams, mesh: Optional[object] = None):
+def data_parallel(mesh: Mesh, fn, src_maps: MetricMap, tgt_maps: MetricMap, *lane_args,
+                  data_axis: str = "data"):
+    """``fn(src_map, tgt_map, *lane_args)`` with the lanes split over the
+    positions of ``data_axis``: layers ``[B,N,3]`` and the ``lane_args``
+    (leading lane axis) one contiguous slice a position, layers ``[N,3]``
+    whole to every position. The per-position results come back to the
+    first position, concatenated in lane order."""
+    def split(mm):
+        return ({n: pc for n, pc in mm.items() if pc.xyz.dim() == 3},
+                {n: pc for n, pc in mm.items() if pc.xyz.dim() != 3})
+
+    (src, src_whole), (tgt, tgt_whole) = split(src_maps), split(tgt_maps)
+    positions = mesh.axis_devices(data_axis)
+    args = []
+    for (s, t, *rest), dev in zip(shard_batch(mesh, (src, tgt, *lane_args), data_axis), positions):
+        s1, t1 = tree_map(lambda x: x.to(dev), (src_whole, tgt_whole))
+        args.append(({**s, **s1}, {**t, **t1}, *rest))
+    return gather_batch(run_per_position(fn, args, positions), positions[0])
+
+
+def make_batched_align(params: ICPParams, mesh: Optional[Mesh] = None,
+                       data_axis: str = "data"):
     """A batched align over the lane axis: ``run(src_maps, tgt_maps,
     init_poses)`` aligns lane b of ``src_maps`` onto lane b of ``tgt_maps``
     from ``init_poses[b]``; layers ``[N,3]`` are shared, ``[B,N,3]`` per
-    lane."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh for the batch axis is not ported (ROADMAP Queue 1 item 16)")
-    return functools.partial(align, params=params)
+    lane. With a mesh the lanes split over ``data_axis`` (the batch must
+    divide by its size); ``run`` takes the whole batch or the
+    per-position slices ``shard_batch`` made of each argument (lists),
+    and returns the whole result on the lead position."""
+    one = functools.partial(align, params=params)
+    if mesh is None:
+        return one
+
+    def run(src_maps, tgt_maps, init_poses) -> ICPResult:
+        if isinstance(src_maps, list):  # per-position slices from shard_batch
+            positions = mesh.axis_devices(data_axis)
+            parts = run_per_position(one, list(zip(src_maps, tgt_maps, init_poses)), positions)
+            return gather_batch(parts, positions[0])
+        return data_parallel(mesh, one, src_maps, tgt_maps, init_poses, data_axis=data_axis)
+
+    return run
 
 
 def batched_align(src_maps: MetricMap, tgt_maps: MetricMap, init_poses: se3.Pose,

@@ -31,7 +31,7 @@ from mola_fe_lidar_tpu_torch.models import icp
 from mola_fe_lidar_tpu_torch.obs.hdl64 import hdl64_sequence
 from mola_fe_lidar_tpu_torch.obs.runner import build_module, realtime_config
 from mola_fe_lidar_tpu_torch.ops import knn_kernel, matching, nn_kernel
-from mola_fe_lidar_tpu_torch.parallel import batch
+from mola_fe_lidar_tpu_torch.parallel import batch, mesh
 from mola_fe_lidar_tpu_torch.solve import gauss_newton
 
 torch.set_num_threads(1)
@@ -223,5 +223,15 @@ def test_chunked_batched_align_is_the_batched_align(setup):
     torch.testing.assert_close(whole.quality, chunked.quality, atol=1e-6, rtol=0)
     with pytest.raises(ValueError):
         batch.make_chunked_batched_align(params, chunk=3)(src, layers[3], se3.Pose(R4, t4))
-    with pytest.raises(NotImplementedError):
-        batch.batched_align(src, layers[3], se3.Pose(R4, t4), params, mesh=object())
+    # a data mesh of 2 positions: 2 lanes each, the same per-lane result
+    previous = mesh.force_device_count(2)
+    try:
+        split = batch.batched_align(src, layers[3], se3.Pose(R4, t4), params,
+                                    mesh=mesh.make_mesh({"data": 2}, mesh.devices("cpu")))
+    finally:
+        mesh.force_device_count(previous)
+    assert torch.equal(whole.n_iterations, split.n_iterations)
+    assert torch.equal(whole.term_reason, split.term_reason)
+    torch.testing.assert_close(whole.pose.t, split.pose.t, atol=1e-5, rtol=0)
+    torch.testing.assert_close(whole.pose.R, split.pose.R, atol=1e-5, rtol=0)
+    torch.testing.assert_close(whole.quality, split.quality, atol=1e-6, rtol=0)

@@ -3,7 +3,10 @@
 ``to_xyz_ypr``, ``rotation_log``), the twist and pose-PDF modules,
 ``empty_cloud`` / ``concat_clouds``, ``voxel_coords`` and
 ``make_batched_align`` on two lanes, against the JAX package on the same
-numpy inputs.
+numpy inputs (and, on a data mesh of two CPU positions, against itself
+without one: equal iterations, termination and quality, poses within
+1e-6, since a lane alone takes the Gauss-Newton system's batched matrix
+products in another order than two lanes together).
 
 Tolerances: f32 geometry within 1e-6 relative to the values' scale
 (1 for rotations, 10-20 m for translations); integers, masks and shapes
@@ -27,7 +30,7 @@ from mola_fe_lidar_tpu_torch import geometry
 from mola_fe_lidar_tpu_torch.cloud import metric_map, voxel
 from mola_fe_lidar_tpu_torch.geometry import se3_np
 from mola_fe_lidar_tpu_torch.models import config
-from mola_fe_lidar_tpu_torch.parallel import batch
+from mola_fe_lidar_tpu_torch.parallel import batch, mesh
 
 torch.set_num_threads(1)
 RTOL = 1e-6
@@ -167,5 +170,15 @@ def test_make_batched_align_matches_reference_on_two_lanes(rng):
     assert np.abs(res.pose.R.numpy() - np.asarray(jres.pose.R)).max() < 2e-4
     for b, (R, t) in enumerate(truth):  # each lane found its own motion
         assert np.abs(res.pose.t[b].numpy() - t).max() < 0.05
-    with pytest.raises(NotImplementedError, match="item 16"):
-        batch.make_batched_align(params, mesh=object())
+    # on a data mesh of 2 positions (one lane each): the same per-lane result
+    previous = mesh.force_device_count(2)
+    try:
+        split = batch.make_batched_align(params, mesh=mesh.make_mesh({"data": 2},
+                                                                     mesh.devices("cpu")))(
+            src_mm, tgt_mm, geometry.Pose(torch.from_numpy(R0.copy()), torch.from_numpy(t0)))
+    finally:
+        mesh.force_device_count(previous)
+    for f in ("n_iterations", "term_reason", "quality"):
+        assert torch.equal(getattr(split, f), getattr(res, f)), f
+    torch.testing.assert_close(split.pose.t, res.pose.t, atol=1e-6, rtol=0)
+    torch.testing.assert_close(split.pose.R, res.pose.R, atol=1e-6, rtol=0)

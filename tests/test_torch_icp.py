@@ -24,7 +24,7 @@ from mola_fe_lidar_tpu.models import icp as jicp
 from mola_fe_lidar_tpu.models.config import AlignKind as JAlignKind
 from mola_fe_lidar_tpu.obs.hdl64 import hdl64_sequence
 from mola_fe_lidar_tpu.frontend.odometry import LidarOdometry as JLidarOdometry
-from mola_fe_lidar_tpu_torch.cloud.metric_map import from_numpy_layers, to_numpy_layers
+from mola_fe_lidar_tpu_torch.cloud.metric_map import PointCloud, from_numpy_layers, to_numpy_layers
 from mola_fe_lidar_tpu_torch.filters.generators import apply_generators
 from mola_fe_lidar_tpu_torch.geometry import se3
 from mola_fe_lidar_tpu_torch.models import config, icp
@@ -90,15 +90,22 @@ def test_align_pipeline_matches_reference(setup, for_map):
 def test_unported_stage_settings_raise(setup):
     port = setup[0]
     stage = port._stages_for(AlignKind.LIDAR_ODOMETRY, False)[0]
-    bad = [dataclasses.replace(stage, shard_axis="model"),
-           dataclasses.replace(stage, matchers=(dataclasses.replace(
-               stage.matchers[0], nn_backend="grid"),))]
+    bad = [dataclasses.replace(stage, matchers=(dataclasses.replace(
+        stage.matchers[0], nn_backend="grid"),))]
     for params in bad:
         with pytest.raises(NotImplementedError):
             icp.check_params(params)
-    # ported since: Anderson acceleration, the motion-conditional candidate
-    # refresh, point-to-point matching with the closed-form solvers; like
-    # the reference, those solvers need a point-to-point matcher
+    # ported since: tensor parallelism (its target must be split over the
+    # mesh: parallel.make_sharded_align), Anderson acceleration, the
+    # motion-conditional candidate refresh, point-to-point matching with
+    # the closed-form solvers; like the reference, those solvers need a
+    # point-to-point matcher
+    tp_stage = dataclasses.replace(stage, shard_axis="model")
+    icp.check_params(tp_stage)
+    whole = PointCloud(torch.zeros(8, 3), torch.ones(8), {})
+    layers = {m.tgt_layer for m in stage.matchers} | {q.tgt_layer for q in stage.quality}
+    with pytest.raises(ValueError, match="split over the mesh"):
+        icp._check_sharding(tp_stage, {name: whole for name in layers})
     icp.check_params(dataclasses.replace(stage, anderson_m=3))
     icp.check_params(dataclasses.replace(stage, cand_refresh_min_trans=0.05))
     p2p = dataclasses.replace(stage.matchers[0], kind="point2point")

@@ -227,9 +227,14 @@ quick["module"].shutdown()
 src, tgt, _ = stack_pairs(make_pairs(np.random.default_rng(7), 2, 256), 256, device="cpu")
 pair = align(src, tgt, se3.Pose(torch.eye(3).expand(2, 3, 3), torch.zeros(2, 3)),
              icp_settings_regular())
+# the device meshes: two positions on the CPU
+from mola_fe_lidar_tpu_torch import parallel
+parallel.mesh.force_device_count(2)
+mesh2 = parallel.make_mesh({"data": 2}, parallel.mesh.devices("cpu"))
 print(json.dumps({"n_keyframes": res["n_keyframes"], "jobs_abandoned": res["jobs_abandoned"],
                   "n_poses": len(res["scan_poses"]), "quick_poses": len(quick["scan_poses"]),
                   "pair_finite": bool(torch.isfinite(pair.pose.t).all()),
+                  "mesh": mesh2.shape,
                   "loaded": sorted(m for m in sys.modules
                                    if m.split(".")[0] in ("jax", "jaxlib", "mola_fe_lidar_tpu"))}))
 """
@@ -258,11 +263,10 @@ def test_port_runs_with_jax_and_the_reference_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"n_keyframes": 1, "jobs_abandoned": 0, "n_poses": 2, "quick_poses": 2,
-                   "pair_finite": True, "loaded": []}
+                   "pair_finite": True, "mesh": {"data": 2}, "loaded": []}
 
 
 @pytest.mark.parametrize("override, item", [
-    ("mesh_data=2", "item 16"),
     ("local_map_nn_backend=grid", "item 17"),
 ])
 def test_unported_settings_raise(override, item):
