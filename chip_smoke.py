@@ -70,7 +70,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    against the twin and a batch against B unbatched launches, once with
    every operand per lane and once with the target and the source mask
    shared by all lanes (stride-0 expands), and time it as in phase 3 (the
-   bound counts B * n * m pairs).
+   bound counts B * n * m pairs);
+9. the voxel-hash grid and the native runtime (:func:`grid_and_native`):
+   the grid's 1-NN (``ops/grid_nn.py``, plain PyTorch, not a kernel) at
+   8192 x 32768 and 4096 x 131,072, bit for bit against the same function
+   on the CPU and against K2 wherever the true neighbour lies within the
+   cell (a difference only where that neighbour was dropped from a full
+   bucket), both timed; the 64 pairs through ``icp_settings_regular`` with
+   target normals on its 1-NN matcher (``point2plane_normals``), with
+   ``nn_backend: grid`` and with K2 (pairs/s, accepted share and pose
+   bound; the kNN preset's matcher stays on K1 under ``grid``); 12 scans
+   with ``local_map_nn_backend=grid`` (ATE bound, the grid queried); the
+   replay's pose graph a ``NativePoseGraph`` (``native/``, built with
+   ``g++``) and ``kitti_read_bin_native`` byte-equal to ``obs/kitti.py``'s
+   reader on a written ``.bin``.
 
 The second-to-last line is ``{"kernels": [...]}`` (one row per kernel at
 its largest main-path shape, with every shape, batched ones included,
@@ -151,6 +164,11 @@ LOC_SEED = 11
 LOC_REPS = 3
 LOC_ERR_BOUND_M = 0.5
 LOC_ADVERSARIAL_M = 6.0
+# the grid phase: (sources, targets) of the grid's 1-NN against K2, its
+# cell (scripts/torch_bench_nn_backends.py's), the timed calls a shape
+GRID_SHAPES = ((8192, 32768), (4096, 1 << 17))
+GRID_CELL = 1.0
+GRID_REPS = 10
 
 
 def fail(msg: str) -> int:
@@ -1320,6 +1338,151 @@ def check_batched(device, shape_counts, unbatched=frozenset()):
     return rows
 
 
+def _grid_search(device, n, m):
+    """The grid's 1-NN at n x m: bit for bit against the CPU run of the
+    same function, and against K2 where the true neighbour lies within the
+    cell; returns the line to print."""
+    import torch
+    from mola_fe_lidar_tpu_torch.ops import grid_nn, nn_kernel
+
+    gen = torch.Generator().manual_seed(n + m)
+    src, smask = make_cloud(gen, n, 0.95, device)
+    tgt, tmask = make_cloud(gen, m, 0.95, device)
+    got = grid_nn.grid_nn(src, smask, tgt, tmask, GRID_CELL)
+    cpu = grid_nn.grid_nn(src.cpu(), smask.cpu(), tgt.cpu(), tmask.cpu(), GRID_CELL)
+    if not (torch.equal(got.idx.cpu(), cpu.idx) and torch.equal(got.dist.cpu(), cpu.dist)):
+        raise AssertionError(f"grid {n}x{m}: the card's result differs from the CPU's")
+    k2 = nn_kernel.nearest_neighbors(src, smask, tgt, tmask)
+    ok = smask > 0.5
+    found = ok & (got.dist < 1e10)
+    if bool((got.dist[found] < k2.dist[found]).any()):
+        raise AssertionError(f"grid {n}x{m}: a distance below the exact one")
+    within = ok & (k2.dist <= GRID_CELL)
+    same = got.idx == k2.idx
+    if not torch.equal(got.dist[within & same], k2.dist[within & same]):
+        raise AssertionError(f"grid {n}x{m}: a distance differs from K2's for the same pair")
+    differ = within & ~same & (got.dist != k2.dist)  # not a tie: a missed neighbour
+    index = grid_nn.build_grid(tgt, tmask, GRID_CELL)
+    true_idx = k2.idx[differ].long()
+    slots = grid_nn._cell_hash(grid_nn._to_cells(tgt[true_idx], index.origin, index.cell),
+                               index.table.shape[-2])
+    bucket = index.table[slots]
+    dropped = (bucket >= 0).all(-1) & ~(bucket == true_idx[:, None].to(bucket.dtype)).any(-1)
+    if not bool(dropped.all()):
+        raise AssertionError(f"grid {n}x{m}: {int((~dropped).sum())} sources within the cell "
+                             "miss a neighbour that no full bucket dropped")
+    grid_ms = cuda_ms(lambda: grid_nn.grid_nn(src, smask, tgt, tmask, GRID_CELL), GRID_REPS)
+    query_ms = cuda_ms(lambda: grid_nn.grid_nearest_neighbors(src, smask, index, tgt, tmask),
+                       GRID_REPS)
+    k2_ms = cuda_ms(lambda: nn_kernel.nearest_neighbors(src, smask, tgt, tmask), GRID_REPS)
+    return (f"grid {n}x{m} (cell {GRID_CELL} m): equal to the CPU run; {int(within.sum())} "
+            f"sources within the cell, {int((within & ~differ).sum())} equal to K2, "
+            f"{int(differ.sum())} dropped by full buckets; build+query {grid_ms:.4f} ms, "
+            f"query {query_ms:.4f} ms, K2 {k2_ms:.4f} ms")
+
+
+def grid_and_native(device, obs, gt, main_res):
+    """Phase 9: the voxel-hash grid (searches, the 64 pairs, a replay with
+    ``local_map_nn_backend=grid``) and the native runtime (the replay's
+    pose graph, the KITTI reader)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mola_fe_lidar_tpu_torch import native
+    from mola_fe_lidar_tpu_torch.filters.pipeline import _attach_normals_knn
+    from mola_fe_lidar_tpu_torch.geometry import se3
+    from mola_fe_lidar_tpu_torch.models import align, icp_settings_regular
+    from mola_fe_lidar_tpu_torch.obs import kitti
+    from mola_fe_lidar_tpu_torch.obs.runner import REALTIME, build_config
+    from mola_fe_lidar_tpu_torch.obs.scan_pairs import make_pairs, pose_errors, stack_pairs
+    from mola_fe_lidar_tpu_torch.ops import grid_nn
+
+    t_phase = time.perf_counter()
+    for n, m in GRID_SHAPES:
+        print(_grid_search(device, n, m))
+
+    queries = [0]
+    query = grid_nn.grid_nearest_neighbors
+
+    def counted(*args):
+        queries[0] += 1
+        return query(*args)
+
+    grid_nn.grid_nearest_neighbors = counted  # the ICP engine calls it through the module
+    try:
+        src, tgt, taus = stack_pairs(make_pairs(np.random.default_rng(PAIR_SEED), PAIRS, PAIR_CAP),
+                                     PAIR_CAP, device=device)
+        tgt_n = {"raw": _attach_normals_knn(tgt["raw"].xyz, tgt["raw"].mask, 8)}
+        eye = se3.Pose(torch.eye(3, device=device).expand(PAIRS, 3, 3).contiguous(),
+                       torch.zeros(PAIRS, 3, device=device))
+        least, largest = PAIR_BOUNDS["regular"]
+        poses = {}
+        for backend in ("grid", "auto"):
+            params = icp_settings_regular(matcher_kind="point2plane_normals")
+            params = dataclasses.replace(params, matchers=tuple(
+                dataclasses.replace(mt, nn_backend=backend) for mt in params.matchers))
+            queries[0] = 0
+            res, sec, counts, _ = _timed_batches(lambda: align(src, tgt_n, eye, params), PAIR_REPS)
+            errs = pose_errors(res.pose, taus)
+            acc = res.quality.cpu().numpy() > 0.5
+            worst = float(errs[acc].max()) if acc.any() else float("inf")
+            label = "grid" if backend == "grid" else "K2"
+            print(f"pairs, icp_settings_regular point2plane_normals on the {label}: "
+                  f"{PAIRS / sec:.1f} pairs/s ({1e3 * sec:.1f} ms a batch of {PAIRS}), accepted "
+                  f"{acc.mean():.3f}, largest accepted error {worst:.6f} m, grid queries "
+                  f"{queries[0]}, launches {counts}")
+            if acc.mean() < least or worst > largest:
+                raise AssertionError(f"{label} pairs: accepted {acc.mean():.3f} (bound {least}), "
+                                     f"largest accepted error {worst} m (bound {largest} m)")
+            if (queries[0] > 0) != (backend == "grid"):
+                raise AssertionError(f"{label} pairs: {queries[0]} grid queries")
+            poses[backend] = res.pose.t
+        print(f"  grid vs K2 pose gap {float((poses['grid'] - poses['auto']).abs().max()):.3g} m")
+        # the kNN preset's matcher stays on K1 under nn_backend: grid
+        knn_grid = icp_settings_regular()
+        knn_grid = dataclasses.replace(knn_grid, matchers=tuple(
+            dataclasses.replace(mt, nn_backend="grid") for mt in knn_grid.matchers))
+        queries[0] = 0
+        _reset_counts()
+        align(src, tgt, eye, knn_grid).quality.cpu()
+        counts, _ = _read_counts()
+        if queries[0] or counts["knn"] == 0:
+            raise AssertionError(f"kNN matcher under grid: {queries[0]} grid queries, {counts}")
+
+        cfg = build_config(overrides=REALTIME + ("local_map_nn_backend=grid",))
+        queries[0] = 0
+        res, _, _, _ = run_phase(device, obs[:VARIANT_SCANS], gt[:VARIANT_SCANS], cfg,
+                                 "grid replay (local_map_nn_backend=grid)")
+        print(f"grid replay: {queries[0]} grid queries, steady {res['scans_per_sec_steady']} "
+              f"scans/s, scan ATE {res['ate_rmse_scan']} m")
+        if queries[0] < 1:
+            raise AssertionError("the grid replay queried no grid")
+    finally:
+        grid_nn.grid_nearest_neighbors = query
+
+    graph = main_res["module"].state.local_pose_graph
+    if type(graph) is not native.NativePoseGraph:
+        raise AssertionError(f"the replay's pose graph is a {type(graph).__name__}: the native "
+                             f"library did not build ({native.build_error})")
+    t0 = time.perf_counter()
+    poses_kf, _ = graph.dijkstra_nodes_estimate(graph.root)
+    print(f"native pose graph: {len(graph)} nodes, {graph.num_edges} edges, Dijkstra "
+          f"{1e3 * (time.perf_counter() - t0):.3f} ms ({len(poses_kf)} poses)")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "000000.bin"
+        rows = np.concatenate([obs[0]["xyz"], np.linspace(0, 1, len(obs[0]["xyz"]))[:, None]], 1)
+        rows.astype(np.float32).tofile(path)
+        xyz, inten = native.kitti_read_bin_native(str(path))
+        want = kitti.read_velodyne_bin(str(path))
+        if not (xyz.tobytes() == np.ascontiguousarray(want[:, :3]).tobytes()
+                and inten.tobytes() == np.ascontiguousarray(want[:, 3]).tobytes()):
+            raise AssertionError("kitti_read_bin_native differs from obs/kitti.py's reader")
+    print(f"kitti_read_bin_native: {len(xyz)} points byte-equal to obs/kitti.py's reader")
+    print(f"grid and native phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (REPO / "mola_fe_lidar_tpu_torch" / "csrc").is_dir():
         return fail(f"the port (mola_fe_lidar_tpu_torch) is not beside {__file__}")
@@ -1392,6 +1555,7 @@ def main() -> int:
                 (row["name"], (1, shape["n"], shape["m"], shape["k"])), (0, N_SCANS, "scan"))
             shape.update(launches=c, per=unit, launches_per=c / per)
         row["shapes"] += batched_rows[row["name"]]
+    grid_and_native(device, obs, gt, main_res)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,10 +10,11 @@ first use on a CUDA tensor. CPU tensors take each kernel's plain PyTorch
 twin (``ops/matching.py``).
 
 Every module of the JAX package has its counterpart here (``geometry``,
-``cloud``, ``ops``, ``filters``, ``solve``, ``models``, ``parallel`` with
-the DP/TP device meshes, ``frontend``, ``obs``), apart from what ROADMAP
-Queue 1 item 17 decided not to port; ``nn_backend: grid`` raises
-``NotImplementedError`` naming that item.
+``cloud``, ``ops`` with the voxel-hash grid search, ``filters``, ``solve``,
+``models``, ``parallel`` with the DP/TP device meshes, ``frontend``,
+``obs``, and ``native``: the C++ pose graph and KITTI reader, built with
+``g++`` at first use). The reference's TPU-only search units route to the
+exact K1/K2 searches.
 """
 
 import torch

@@ -360,8 +360,8 @@ class LidarOdometry(FrontEndBase):
 
     # ------------------------------------------------------------------
     def initialize(self, cfg: Dict[str, Any]) -> None:
-        """Parse the module's ``params`` block; raise NotImplementedError
-        for any setting whose path is not ported."""
+        """Parse the module's ``params`` block; raise ValueError for
+        settings the reference rejects."""
         c = cfg.get("params", cfg)
         p = self.params
         for f in dataclasses.fields(p):

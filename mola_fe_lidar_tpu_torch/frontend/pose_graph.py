@@ -6,10 +6,12 @@ src/LidarOdometry.cpp:461-463), ``dijkstra_nodes_estimate`` with
 topological distances (:528-551), adjacency queries for pruning (:555-569),
 and root bookkeeping.
 
-Pure-Python host code — the graph holds O(keyframes) entries and is walked
-once per scan; it is bookkeeping, not FLOPs (SURVEY.md §3.2 notes all hot
-loops live in the device engine). Poses are stored as numpy (R, t) pairs so
-no device traffic is involved.
+Host code — the graph holds O(keyframes) entries and is walked once per
+scan; it is bookkeeping, not FLOPs (SURVEY.md §3.2 notes all hot loops live
+in the device engine). Poses are stored as numpy (R, t) pairs so no device
+traffic is involved. :func:`make_pose_graph` returns the C++ graph
+(``native/``) where ``g++`` builds it, as the reference does, and this
+pure-Python one (the same surface) elsewhere.
 """
 
 from __future__ import annotations
@@ -21,9 +23,14 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 
 
-def make_pose_graph():
-    """The pure-Python graph (the JAX package can also use a C++ one with
-    the same surface)."""
+def make_pose_graph(prefer_native: bool = True):
+    """The C++-backed graph when the native runtime builds (at the first
+    call), else the pure-Python one (identical surface)."""
+    if prefer_native:
+        from ..native import NATIVE_AVAILABLE, NativePoseGraph
+
+        if NATIVE_AVAILABLE:
+            return NativePoseGraph()
     return PoseGraph()
 
 

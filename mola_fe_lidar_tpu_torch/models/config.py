@@ -7,8 +7,8 @@ src/LidarOdometry.cpp:57-88) as frozen dataclasses. A copy of
 ``mola_fe_lidar_tpu/models/config.py``, so both packages parse one YAML into
 equal objects. The field comments are the reference's and describe its
 backends: in this port every exact ``nn_backend`` is the same search (the
-K1/K2 kernels, ``models/icp.py::_resolve_backend``), and fields of features
-not ported make ``models/icp.py::check_params`` raise.
+K1/K2 kernels, ``models/icp.py::_resolve_backend``) and ``"grid"`` is the
+reference's voxel hash (``ops/grid_nn.py``).
 """
 
 from __future__ import annotations

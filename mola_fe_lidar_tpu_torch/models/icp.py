@@ -17,8 +17,13 @@ on the SE(3) chart at the initial pose, with the reference's revert and
 reset rules; incompatible with candidate caches, as in the reference).
 Nearest-neighbour searches go through the hand-written kernels
 (``ops/knn_kernel.py`` K1, ``ops/nn_kernel.py`` K2), which take their plain
-twins for CPU tensors: every ``nn_backend`` of the reference except
-``"grid"`` is the same exact search here.
+twins for CPU tensors: every exact ``nn_backend`` of the reference is the
+same exact search here. ``nn_backend="grid"`` is the reference's voxel hash
+(``ops/grid_nn.py``, radius-limited at the matcher's distance threshold) for
+the 1-NN of ``point2point``, ``point2plane_normals`` and ``gicp`` where no
+candidate cache serves the matcher (the final covariance system included);
+its index is built once per align per matcher. The kNN matchers stay on K1
+and a split target on the split K2, as in the reference.
 
 Tensor parallelism (``shard_axis``, the reference's ``shard_map`` over a
 ``model`` axis, ``parallel/distributed.py``): every target layer is a
@@ -54,7 +59,7 @@ import torch
 
 from ..cloud.metric_map import MetricMap, PointCloud, ShardedCloud
 from ..geometry import se3
-from ..ops import eigen3, knn_kernel, nn_kernel, tp
+from ..ops import eigen3, grid_nn, knn_kernel, nn_kernel, tp
 from ..ops.matching import NNResult
 from ..solve import gauss_newton, horn, olae, robust
 from ..solve import quality as quality_mod
@@ -89,18 +94,14 @@ class _Pairings(NamedTuple):
 
 def _resolve_backend(backend: str) -> None:
     """Every exact backend of the reference is the same search in the
-    port: K1/K2 on CUDA tensors, their plain twins on CPU tensors."""
-    if backend == "grid":
-        raise NotImplementedError(
-            "nn_backend='grid' is not ported (ROADMAP Queue 1 item 17: the "
-            "grid search is slower than brute force at every measured size)")
-    if backend not in _EXACT_BACKENDS:
+    port: K1/K2 on CUDA tensors, their plain twins on CPU tensors;
+    ``"grid"`` is the voxel hash."""
+    if backend not in _EXACT_BACKENDS and backend != "grid":
         raise ValueError(f"unknown nn_backend {backend!r}")
 
 
 def check_params(params: ICPParams) -> None:
-    """Raise NotImplementedError for stage settings the port lacks and
-    ValueError for settings the reference rejects."""
+    """Raise ValueError for settings the reference rejects."""
     for m in params.matchers:
         if m.kind not in _MATCHERS:
             raise ValueError(f"unknown matcher kind {m.kind!r}")
@@ -204,7 +205,7 @@ def _knn_fit(neigh, dist):
 
 
 def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
-               cand_idx=None) -> _Pairings:
+               cand_idx=None, grid=None) -> _Pairings:
     src = src_map[m.src_layer]
     tgt = tgt_map[m.tgt_layer]
     sp = se3.transform(pose, src.xyz)
@@ -221,8 +222,11 @@ def _match_one(m: Matcher, pose, it, src_map: MetricMap, tgt_map: MetricMap,
         take = tp.tp_gather_points
     else:
         def nn1():
-            return (_nn_from_cands(sp, tgt, cand_idx) if cand_idx is not None
-                    else _nn_1(sp, src.mask, tgt))
+            if cand_idx is not None:
+                return _nn_from_cands(sp, tgt, cand_idx)
+            if grid is not None:
+                return grid_nn.grid_nearest_neighbors(sp, src.mask, grid, tgt.xyz, tgt.mask)
+            return _nn_1(sp, src.mask, tgt)
 
         def nnk():
             if cand_idx is not None:
@@ -325,13 +329,26 @@ def _apply_pair_weights(pr: _Pairings, pose, params: ICPParams) -> _Pairings:
     return pr._replace(w=w)
 
 
-def _gather(pose, it, src_map, tgt_map, params: ICPParams, cands=None):
+def _build_grids(tgt_map, params: ICPParams):
+    """The loop-invariant grid index of every ``nn_backend="grid"`` 1-NN
+    matcher, at ``cell = distance_threshold`` (the reference's
+    ``_prebuild_matcher_aux``; a split target keeps the split K2)."""
+    return tuple(
+        grid_nn.build_grid(tgt_map[m.tgt_layer].xyz, tgt_map[m.tgt_layer].mask,
+                           float(m.distance_threshold))
+        if (m.nn_backend == "grid" and params.shard_axis is None
+            and m.kind not in _CAND_KNN_KINDS) else None
+        for m in params.matchers)
+
+
+def _gather(pose, it, src_map, tgt_map, params: ICPParams, cands=None, grids=None):
     """Every matcher's pairings, re-weighted: (the plane-row system, the
     raw point-to-point pairings for the closed-form solvers)."""
     plane_rows, p2p_rows = [], []
     for i, m in enumerate(params.matchers):
         pr = _apply_pair_weights(_match_one(m, pose, it, src_map, tgt_map,
-                                            cands[i] if cands is not None else None),
+                                            cands[i] if cands is not None else None,
+                                            grids[i] if grids is not None else None),
                                  pose, params)
         if pr.is_plane:
             plane_rows.append(pr)
@@ -536,9 +553,10 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
             "the cache's block loop already amortizes the per-iteration cost")
     block = max(1, params.cand_refresh) if uses_cands else _PLAIN_BLOCK
     prior_w = _prior_weights(params, dev)
+    grids = _build_grids(tgt_map, params)
 
     def step(pose, it, cands):
-        plane, p2p_rows = _gather(pose, it, src_map, tgt_map, params, cands)
+        plane, p2p_rows = _gather(pose, it, src_map, tgt_map, params, cands, grids)
         new_pose = _solve(pose, plane, p2p_rows, params, init_pose, prior_w)
         # too few effective pairings: stall instead of trusting the solve
         new_pose = _freeze(torch.sum(plane.w, dim=-1) >= 6.0, new_pose, pose)
@@ -613,7 +631,7 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
         finished = all(d > 0.5 or n >= params.max_iterations for n, d in zip(read[0], read[1]))
 
     # final system at the converged pose -> covariance
-    plane, _ = _gather(pose, it, src_map, tgt_map, params)
+    plane, _ = _gather(pose, it, src_map, tgt_map, params, grids=grids)
     final = gauss_newton.point_to_plane_step(pose, plane.p, plane.q, plane.n, plane.w,
                                              inner_iterations=0)
     cov = gauss_newton.covariance_from_normal_matrix(

@@ -222,3 +222,27 @@ def test_scan_pair_copies_are_the_reference():
     np.testing.assert_array_equal(srcs["raw"].xyz.numpy(), np.asarray(jsrcs["raw"].xyz))
     np.testing.assert_array_equal(tgts["raw"].xyz.numpy(), np.asarray(jtgts["raw"].xyz))
     np.testing.assert_array_equal(srcs["raw"].mask.numpy(), np.asarray(jsrcs["raw"].mask))
+
+
+@pytest.mark.parametrize("name", ["pose_graph.cpp", "io.cpp"])
+def test_native_sources_are_the_reference(name):
+    """The port's C++ runtime (``native/``) builds from copies of the JAX
+    package's sources."""
+    port = (REPO / "mola_fe_lidar_tpu_torch" / "native" / name).read_bytes()
+    assert port == (REPO / "mola_fe_lidar_tpu" / "native" / name).read_bytes()
+
+
+def test_crossover_clouds_are_the_reference():
+    """``scripts/torch_bench_nn_backends.py`` times the reference
+    crossover's clouds."""
+    import importlib.util
+
+    mods = []
+    for name in ("bench_nn_backends", "torch_bench_nn_backends"):
+        spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+        mods.append(importlib.util.module_from_spec(spec))
+        spec.loader.exec_module(mods[-1])  # defines functions only; main is guarded
+    for n in (64, 2048, 2047):
+        for got, want in zip(mods[1].make_cloud(n, np.random.default_rng(n)),
+                             mods[0].make_cloud(n, np.random.default_rng(n))):
+            np.testing.assert_array_equal(got, want)

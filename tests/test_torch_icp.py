@@ -64,11 +64,22 @@ def _jmap(layers):
             for n, e in layers.items()}
 
 
-@pytest.mark.parametrize("for_map", [False, True], ids=["scan_stages", "map_stages"])
-def test_align_pipeline_matches_reference(setup, for_map):
+def _with_backend(stages, backend):
+    return tuple(dataclasses.replace(s, matchers=tuple(
+        dataclasses.replace(m, nn_backend=backend) for m in s.matchers)) for s in stages)
+
+
+@pytest.mark.parametrize("for_map, backend", [(False, ""), (True, ""), (True, "grid")],
+                         ids=["scan_stages", "map_stages", "map_stages_grid"])
+def test_align_pipeline_matches_reference(setup, for_map, backend):
+    """``map_stages_grid``: the map stages with ``nn_backend="grid"``, as
+    ``local_map_nn_backend: grid`` sets them: the candidate cache serves
+    the point-to-plane matcher's loop and the grid its final system."""
     port, ref, (tgt, src), (gR, gt_) = setup
     stages = port._stages_for(AlignKind.LIDAR_ODOMETRY, for_map)
     jstages = ref._stages_for(JAlignKind.LIDAR_ODOMETRY, for_map)
+    if backend:
+        stages, jstages = _with_backend(stages, backend), _with_backend(jstages, backend)
     assert [dataclasses.asdict(s) for s in stages] == [dataclasses.asdict(s) for s in jstages]
     res = icp.align_pipeline(from_numpy_layers(src, "cpu"), from_numpy_layers(tgt, "cpu"),
                              se3.Pose(torch.from_numpy(gR), torch.from_numpy(gt_)), stages)
@@ -90,11 +101,16 @@ def test_align_pipeline_matches_reference(setup, for_map):
 def test_unported_stage_settings_raise(setup):
     port = setup[0]
     stage = port._stages_for(AlignKind.LIDAR_ODOMETRY, False)[0]
-    bad = [dataclasses.replace(stage, matchers=(dataclasses.replace(
-        stage.matchers[0], nn_backend="grid"),))]
-    for params in bad:
-        with pytest.raises(NotImplementedError):
-            icp.check_params(params)
+
+    def backend(name):
+        return dataclasses.replace(stage, matchers=(dataclasses.replace(
+            stage.matchers[0], nn_backend=name),))
+
+    # every stage setting is ported: the voxel-hash grid is accepted, an
+    # unknown backend is refused as in the reference
+    icp.check_params(backend("grid"))
+    with pytest.raises(ValueError, match="unknown nn_backend"):
+        icp.check_params(backend("kdtree"))
     # ported since: tensor parallelism (its target must be split over the
     # mesh: parallel.make_sharded_align), Anderson acceleration, the
     # motion-conditional candidate refresh, point-to-point matching with

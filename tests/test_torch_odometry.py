@@ -266,15 +266,6 @@ def test_port_runs_with_jax_and_the_reference_blocked():
                    "pair_finite": True, "mesh": {"data": 2}, "loaded": []}
 
 
-@pytest.mark.parametrize("override, item", [
-    ("local_map_nn_backend=grid", "item 17"),
-])
-def test_unported_settings_raise(override, item):
-    cfg = runner.build_config(overrides=runner.REALTIME + (override,))
-    with pytest.raises(NotImplementedError, match=item):
-        runner.build_module(cfg, device="cpu").shutdown()
-
-
 @pytest.mark.parametrize("override, first_filter", [
     ("decimate_to_point_count=4096", "FilterDecimateToCount"),
     ("pointcloud_filter.1.params.stats_mode=segment", "FilterDeskew"),
@@ -283,6 +274,7 @@ def test_unported_settings_raise(override, item):
     ("local_map_build_mode=sort", "FilterDeskew"),
     ("local_map_min_views=2,local_map_async_build=true", "FilterDeskew"),
     ("local_map_cand_motion_trans=0.05", "FilterDeskew"),
+    ("local_map_nn_backend=grid", "FilterDeskew"),
 ])
 def test_settings_ported_since_build(override, first_filter):
     cfg = runner.build_config(overrides=runner.REALTIME + tuple(override.split(",")))
@@ -295,6 +287,10 @@ def test_settings_ported_since_build(override, first_filter):
             from mola_fe_lidar_tpu_torch.models.config import AlignKind
             stages = module._stages_for(AlignKind.LIDAR_ODOMETRY, True)
             assert {s.cand_refresh_min_trans for s in stages} == {0.05}
+        if "nn_backend" in override:  # the voxel-hash grid on the map stages
+            from mola_fe_lidar_tpu_torch.models.config import AlignKind
+            stages = module._stages_for(AlignKind.LIDAR_ODOMETRY, True)
+            assert {m.nn_backend for s in stages for m in s.matchers} == {"grid"}
     finally:
         module.shutdown()
 
