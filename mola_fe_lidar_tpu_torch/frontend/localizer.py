@@ -19,6 +19,12 @@ stride-0 expands, so each search of a block is one K1/K2 launch for all
 probes. A localize reads the device twice: the base align's result, then
 the probes' poses and qualities.
 
+Spans (``utils/profiler.py``, recorded only under ``torch.profiler``): a
+``localize`` root holds ``localize.base`` (the base pipeline),
+``localize.read`` (its read) and ``localize.probes`` (the probe batch and
+its read, a second ``localize.read``); ``localize_raw`` is a root of its
+own, whose result the caller reads. The aligns' ``icp.*`` spans nest below.
+
 Everything runs on the map's device (``device``, the card unless the
 caller passes ``device="cpu"``); the scan and the initial pose must be
 there too.
@@ -38,6 +44,7 @@ from ..cloud.voxel import hash_subsample_np, voxel_first_indices_np
 from ..geometry import se3
 from ..models.config import ICPParams, Matcher, PairWeights, Quality, Solver
 from ..models.icp import ICPResult, align, align_pipeline
+from ..utils import profiler
 from .worldmodel import ANNOTATION_NAME_PC_LAYERS, WorldModel
 
 
@@ -198,9 +205,10 @@ class MapLocalizer:
         the answer themselves; :meth:`localize` is the gated query."""
         if self._map is None:
             raise RuntimeError("MapLocalizer.build() first")
-        src = self._query_src(scan)
-        return align(src, self._map, self._pose_on_device(init_pose),
-                     self._query_params(with_edges="scan_edges" in src))
+        with profiler.span("localize_raw"):
+            src = self._query_src(scan)
+            return align(src, self._map, self._pose_on_device(init_pose),
+                         self._query_params(with_edges="scan_edges" in src))
 
     def _probe_stages(self, with_edges: bool = False) -> tuple:
         """The coarse -> fine -> sharp pipeline of the base query and the
@@ -238,18 +246,25 @@ class MapLocalizer:
         reject."""
         if self._map is None:
             raise RuntimeError("MapLocalizer.build() first")
+        with profiler.span("localize"):
+            return self._localize(scan, init_pose, seed)
+
+    def _localize(self, scan: MetricMap, init_pose: se3.Pose, seed: int) -> LocalizeResult:
         init_pose = self._pose_on_device(init_pose)
         src = self._query_src(scan)
         stages = self._probe_stages(with_edges="scan_edges" in src)
-        base = align_pipeline(src, self._map, init_pose, stages)
-        # one read of the base result
-        packed = torch.cat([base.pose.R.reshape(9), base.pose.t, base.cov.reshape(36),
-                            torch.stack([base.quality.to(torch.float32),
-                                         base.n_iterations.to(torch.float32),
-                                         base.term_reason.to(torch.float32)])]).cpu().numpy()
+        with profiler.span("localize.base"):
+            base = align_pipeline(src, self._map, init_pose, stages)
+        with profiler.span("localize.read", leaf=True):
+            # one read of the base result
+            packed = torch.cat([base.pose.R.reshape(9), base.pose.t, base.cov.reshape(36),
+                                torch.stack([base.quality.to(torch.float32),
+                                             base.n_iterations.to(torch.float32),
+                                             base.term_reason.to(torch.float32)])]).cpu().numpy()
+            t_init = init_pose.t.cpu().numpy()
         Rb, tb, cov = packed[:9].reshape(3, 3), packed[9:12], packed[12:48].reshape(6, 6)
         quality = float(packed[48])
-        correction = float(np.linalg.norm(tb - init_pose.t.cpu().numpy()))
+        correction = float(np.linalg.norm(tb - t_init))
         k = max(1, self.multi_start)
 
         def result(reason, n_agree, n_compete, rival_q, dispersion):
@@ -267,13 +282,15 @@ class MapLocalizer:
         if k == 1:
             return result("", 1, 0, 0.0, 0.0)
 
-        gR, gt = self._probe_starts(Rb, tb, k - 1, seed)
-        starts = se3.Pose(torch.as_tensor(gR, dtype=torch.float32, device=self.device),
-                          torch.as_tensor(gt, dtype=torch.float32, device=self.device))
-        probes = align_pipeline(src, self._map, starts, stages)
-        # one read for the whole probe batch
-        out = torch.cat([probes.pose.R.reshape(k - 1, 9), probes.pose.t,
-                         probes.quality.to(torch.float32)[:, None]], dim=-1).cpu().numpy()
+        with profiler.span("localize.probes"):
+            gR, gt = self._probe_starts(Rb, tb, k - 1, seed)
+            starts = se3.Pose(torch.as_tensor(gR, dtype=torch.float32, device=self.device),
+                              torch.as_tensor(gt, dtype=torch.float32, device=self.device))
+            probes = align_pipeline(src, self._map, starts, stages)
+            with profiler.span("localize.read", leaf=True):
+                # one read for the whole probe batch
+                out = torch.cat([probes.pose.R.reshape(k - 1, 9), probes.pose.t,
+                                 probes.quality.to(torch.float32)[:, None]], dim=-1).cpu().numpy()
         Rs, ts, qs = out[:, :9].reshape(k - 1, 3, 3), out[:, 9:12], out[:, 12]
 
         dts = np.linalg.norm(ts - tb[None], axis=-1)

@@ -47,11 +47,22 @@ iteration count and convergence flag and is frozen once it is done, as
 under ``vmap`` of the ``while_loop``; the loop ends when every lane is done
 or at the cap, with one host read per block for the whole batch, and every
 search of a block is one K1/K2 launch for all lanes.
+
+Spans (``utils/profiler.py``, recorded only under ``torch.profiler``): one
+``icp.align`` a call, around the leaves ``icp.refresh`` (a block head's
+candidate refresh), ``icp.match`` and ``icp.solve`` (each iteration's
+pairings, then its solve, freeze and convergence test), ``icp.read`` (the
+block's host read) and ``icp.final`` (covariance and quality). Its counters
+come from values the host already holds: ``lanes``, ``block``, ``blocks``,
+``iterations`` (blocks x block, the iterations dispatched) and
+``lane_iterations`` (the lanes' final iteration counts summed, from the
+last block's read).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -63,6 +74,7 @@ from ..ops import eigen3, grid_nn, knn_kernel, nn_kernel, tp
 from ..ops.matching import NNResult
 from ..solve import gauss_newton, horn, olae, robust
 from ..solve import quality as quality_mod
+from ..utils import profiler
 from .config import ICPParams, Matcher
 
 TERM_CONVERGED = 0
@@ -537,6 +549,11 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
     """Register ``src_map`` onto ``tgt_map`` from ``init_pose``; the pose
     maps source-frame points into the target frame. With ``init_pose`` of
     shape ``[B]`` the result is per lane (see the module docstring)."""
+    with profiler.span("icp.align") as sp:
+        return _align(src_map, tgt_map, init_pose, params, sp)
+
+
+def _align(src_map, tgt_map, init_pose, params: ICPParams, sp) -> ICPResult:
     check_params(params)
     dev = init_pose.t.device
     lanes = tuple(init_pose.t.shape[:-1])
@@ -555,8 +572,7 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
     prior_w = _prior_weights(params, dev)
     grids = _build_grids(tgt_map, params)
 
-    def step(pose, it, cands):
-        plane, p2p_rows = _gather(pose, it, src_map, tgt_map, params, cands, grids)
+    def step(pose, plane, p2p_rows):
         new_pose = _solve(pose, plane, p2p_rows, params, init_pose, prior_w)
         # too few effective pairings: stall instead of trusting the solve
         new_pose = _freeze(torch.sum(plane.w, dim=-1) >= 6.0, new_pose, pose)
@@ -595,29 +611,34 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
     hist = _Anderson.empty(lanes, params.anderson_m, dev) if params.anderson_m > 0 else None
     finished = params.max_iterations <= 0
     cands = ref = moved = None
+    blocks, lane_iterations = 0, 0
     while not finished:
         if uses_cands:
-            if cands is None or not cond_refresh:
-                cands, ref = refresh(pose), pose  # the first refresh is at init_pose
-            elif lanes:
-                # per lane, as under the reference's vmap: both branches run
-                # and the lanes that moved (and are not done) take the refresh
-                moved = moved & ~done & (it < params.max_iterations)
-                cands = tuple(c if c is None else torch.where(moved[..., None, None], f, c)
-                              for c, f in zip(cands, refresh(pose)))
-                ref = _freeze(moved, pose, ref)
-            elif moved:
-                cands, ref = refresh(pose), pose
+            with profiler.span("icp.refresh", leaf=True):
+                if cands is None or not cond_refresh:
+                    cands, ref = refresh(pose), pose  # the first refresh is at init_pose
+                elif lanes:
+                    # per lane, as under the reference's vmap: both branches run
+                    # and the lanes that moved (and are not done) take the refresh
+                    moved = moved & ~done & (it < params.max_iterations)
+                    cands = tuple(c if c is None else torch.where(moved[..., None, None], f, c)
+                                  for c, f in zip(cands, refresh(pose)))
+                    ref = _freeze(moved, pose, ref)
+                elif moved:
+                    cands, ref = refresh(pose), pose
         for _ in range(block):
-            active = ~done & (it < params.max_iterations)
-            new_pose, converged = step(pose, it, cands)
-            if hist is not None:
-                new_pose, converged, new_hist = _anderson(hist, pose, new_pose, converged,
-                                                          init_pose, params)
-                hist = _freeze_history(active, new_hist, hist)
-            pose = _freeze(active, new_pose, pose)
-            done = done | (active & converged)
-            it = it + active.to(torch.int32)
+            with profiler.span("icp.match", leaf=True):
+                plane, p2p_rows = _gather(pose, it, src_map, tgt_map, params, cands, grids)
+            with profiler.span("icp.solve", leaf=True):
+                active = ~done & (it < params.max_iterations)
+                new_pose, converged = step(pose, plane, p2p_rows)
+                if hist is not None:
+                    new_pose, converged, new_hist = _anderson(hist, pose, new_pose, converged,
+                                                              init_pose, params)
+                    hist = _freeze_history(active, new_hist, hist)
+                pose = _freeze(active, new_pose, pose)
+                done = done | (active & converged)
+                it = it + active.to(torch.int32)
         # the one host read per block, for every lane; unbatched, the moved
         # flag rides it and a block head without motion skips the refresh
         rows = [it.to(torch.float32), done.to(torch.float32)]
@@ -625,19 +646,25 @@ def align(src_map: MetricMap, tgt_map: MetricMap, init_pose: se3.Pose,
             moved = moved_since(ref)
             if not lanes:
                 rows.append(moved.to(torch.float32))
-        read = torch.stack(rows).reshape(len(rows), -1).tolist()
+        with profiler.span("icp.read", leaf=True):
+            read = torch.stack(rows).reshape(len(rows), -1).tolist()
         if cond_refresh and not lanes:
             moved = read[2][0] > 0.5
         finished = all(d > 0.5 or n >= params.max_iterations for n, d in zip(read[0], read[1]))
+        blocks += 1
+        lane_iterations = int(sum(read[0]))
+    sp.set(lanes=math.prod(lanes), block=block, blocks=blocks, iterations=blocks * block,
+           lane_iterations=lane_iterations)
 
-    # final system at the converged pose -> covariance
-    plane, _ = _gather(pose, it, src_map, tgt_map, params, grids=grids)
-    final = gauss_newton.point_to_plane_step(pose, plane.p, plane.q, plane.n, plane.w,
-                                             inner_iterations=0)
-    cov = gauss_newton.covariance_from_normal_matrix(
-        final.normal_matrix, final.sq_residual_sum, final.weight_sum)
-    q = _quality(pose, src_map, tgt_map, params)
-    term = torch.where(done, TERM_CONVERGED, TERM_MAX_ITERS).to(torch.int32)
+    with profiler.span("icp.final", leaf=True):
+        # final system at the converged pose -> covariance
+        plane, _ = _gather(pose, it, src_map, tgt_map, params, grids=grids)
+        final = gauss_newton.point_to_plane_step(pose, plane.p, plane.q, plane.n, plane.w,
+                                                 inner_iterations=0)
+        cov = gauss_newton.covariance_from_normal_matrix(
+            final.normal_matrix, final.sq_residual_sum, final.weight_sum)
+        q = _quality(pose, src_map, tgt_map, params)
+        term = torch.where(done, TERM_CONVERGED, TERM_MAX_ITERS).to(torch.int32)
     return ICPResult(pose, cov, q, it, term)
 
 
