@@ -286,6 +286,7 @@ class TestLidarOdometryIntegration:
         assert m.state.last_kf is None
         assert len(m.state.local_pose_graph) == 0
 
+    @pytest.mark.slow
     def test_loop_closure_fires(self, small_world):
         # circular circuit revisiting the start: topological distance large,
         # euclidean small => LC gate opens (reference :588-589)
@@ -306,6 +307,7 @@ class TestLidarOdometryIntegration:
 class TestSubmapLoopClosure:
     """Scan-vs-submap LC targets (lc_submap_keyframes) + the auto gate."""
 
+    @pytest.mark.slow
     def test_loop_closure_fires_with_submap(self, small_world):
         obs, gt = synthetic_sequence(kind="circle", n_scans=80, speed=2.0,
                                      rate_hz=2.0, world=small_world,

@@ -537,6 +537,7 @@ class TestMapStageFloor:
 
 
 class TestLocalMapOdometry:
+    @pytest.mark.slow
     def test_local_map_mode_tracks_synthetic_run(self):
         """Full front-end in local_map mode on a synthetic sequence: map
         forms, keyframes appear, world pose advances consistently with the

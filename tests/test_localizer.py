@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mola_fe_lidar_tpu.cloud import from_points
 from mola_fe_lidar_tpu.frontend.localizer import MapLocalizer
@@ -17,6 +18,7 @@ def world():
 
 
 class TestMapLocalizer:
+    @pytest.mark.slow
     def test_localize_after_mapping_run(self):
         w = world()
         obs, gt = synthetic_sequence(kind="straight", n_scans=12, speed=2.0,
@@ -86,6 +88,7 @@ class TestLocalizeGate:
                 tiles.append(cluster + np.array([i, j, 0]) * period)
         return np.concatenate(tiles).astype(np.float32), cluster
 
+    @pytest.mark.slow
     def test_unique_scene_accepted(self):
         w = world()
         obs, gt = synthetic_sequence(kind="straight", n_scans=12, speed=2.0,

@@ -6,7 +6,13 @@ poses with an ``edges`` layer, for the map build and the ungated query;
 the reference tests' periodic grid of identical L-shaped clusters (the
 aliasing worst case, ``tests/test_localizer.py``) for the gate, where the
 base query snaps to the wrong tile and the probes find the identical
-rivals: a clear-cut verdict, far from the thresholds.
+rivals: a clear-cut verdict, far from the thresholds; and the reference
+tests' 12-scan straight mapping run, replayed through the port's
+front-end, its keyframes built into a map, and a new scan localized in
+it with two starts and with four (a unique scene: the gate accepts). The
+mapping run is checked against the sequence's ground truth, not against
+the JAX package: the JAX twins of its two cases take minutes each on the
+CPU and are marked ``slow``.
 
 Tolerances: the map build and the probe starts are numpy in both packages
 and must be equal to the last bit. Aligns run the same f32 algorithm with
@@ -29,6 +35,8 @@ from mola_fe_lidar_tpu_torch.cloud import metric_map
 from mola_fe_lidar_tpu_torch.frontend import localizer
 from mola_fe_lidar_tpu_torch.frontend.worldmodel import ANNOTATION_NAME_PC_LAYERS, WorldModel
 from mola_fe_lidar_tpu_torch.geometry import se3
+from mola_fe_lidar_tpu_torch.obs import runner, synthetic
+from tests.test_frontend import odom_test_cfg
 
 torch.set_num_threads(1)
 
@@ -229,3 +237,48 @@ def test_queries_before_build_raise_and_helpers_match_reference():
     ident, jident = se3.identity((2,), device="cpu"), jse3.identity((2,))
     np.testing.assert_array_equal(ident.R.numpy(), np.asarray(jident.R))
     np.testing.assert_array_equal(ident.t.numpy(), np.asarray(jident.t))
+
+
+@pytest.fixture(scope="module")
+def mapping_run():
+    """The reference tests' mapping run: 12 straight scans (2 m/s, 2 Hz)
+    through the port's front-end, a map of its keyframes at their
+    estimated poses, and a new scan taken at ``gt[5]`` with its true pose
+    in the map frame (the first keyframe's, ``gt[0]``)."""
+    w = synthetic.SyntheticWorld(extent=60.0, n_world_points=60_000, points_per_scan=4096,
+                                 max_range=35.0, seed=6)
+    obs, gt = synthetic.synthetic_sequence(kind="straight", n_scans=12, speed=2.0, rate_hz=2.0,
+                                           world=w)
+    m = runner.run_replay(obs, odom_test_cfg(), device="cpu")["module"]
+    try:
+        # 1 << 13 holds the whole map (~7.5k voxels): the CPU's brute-force
+        # searches scan every slot, and the reference tests' 1 << 14 would
+        # double them for padding
+        loc = localizer.MapLocalizer(map_capacity=1 << 13, voxel_size=0.5, device="cpu")
+        loc.build_from_worldmodel(m.worldmodel, runner.estimated_trajectory(m))
+        (R0, t0), (Rq, tq) = gt[0], gt[5]
+        scan = {"raw": metric_map.from_points(w.scan_at(Rq, tq), capacity=4096, device="cpu")}
+        yield loc, scan, R0.T @ Rq, R0.T @ (tq - t0)
+    finally:
+        m.shutdown()
+
+
+@pytest.mark.parametrize("case", ["mapping_run", "unique_scene"])
+def test_mapping_run_localizes_to_ground_truth(mapping_run, case):
+    """From ``+[0.5, -0.3, 0]`` m off the true pose: within 0.25 m of it
+    at quality > 0.5 with two starts, and accepted by the gate with at
+    least 3 agreeing of four starts (the scene is unique)."""
+    loc, scan, R_true, t_true = mapping_run
+    loc.multi_start, loc.start_sigma_xyz = {"mapping_run": (2, 1.0),
+                                            "unique_scene": (4, 1.5)}[case]
+    assert 1000 < int(loc.map_cloud.count()) < loc.map_capacity  # not subsampled
+    init = se3.Pose(torch.tensor(R_true, dtype=torch.float32),
+                    torch.tensor(t_true + np.array([0.5, -0.3, 0.0]), dtype=torch.float32))
+    out = loc.localize(scan, init)
+    err = np.linalg.norm(np.asarray(out.pose.t) - t_true)
+    assert err < 0.25, err
+    if case == "mapping_run":
+        assert float(out.quality) > 0.5
+    else:
+        assert out.accepted, out.reject_reason
+        assert out.n_agree >= 3
