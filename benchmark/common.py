@@ -79,6 +79,16 @@ def load_reference(config_name: str):
     return _load_module(path, f"bench_reference_{config_name.replace('-', '_')}")
 
 
+def load_feed(kind: str):
+    """``drive_<kind>.py``: the feed of a traffic kind, whose ``run(ctx)``
+    drives the program through the mix and whose ``SAMPLE`` names the
+    mix's key for the number of units the reference checks."""
+    path = BENCH / f"drive_{kind}.py"
+    if not _name_ok(kind) or not path.is_file():
+        raise BenchError(f"traffic kind {kind!r} has no feed (looked for drive_{kind}.py)")
+    return _load_module(path, "bench_feed_" + kind.replace(".", "_").replace("-", "_"))
+
+
 def load_reader(metric: str):
     """``metrics/<metric>.py``: a per-layer metric's reader, whose
     ``read(ctx)`` returns a number or None."""

@@ -28,6 +28,9 @@ import common
 from common import BenchError
 from slice_trace import Slice
 
+# the mix's key for how many of the window's queries the reference checks
+SAMPLE = "sample_queries"
+
 
 def _result_host(call: str, res) -> dict:
     """The answer of a query on the host (a gated result already is)."""

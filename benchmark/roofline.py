@@ -56,12 +56,16 @@ def kernel_of(name: str) -> Optional[str]:
 
 def real_shape(shape: Tuple[int, int, int, int], valid: Optional[dict]):
     """(B, n, m, k) with the padded source and target sizes replaced by
-    the real ones: ``valid["n"][n]``, and ``valid["m"][m]`` or, for a
+    the real ones: ``valid["pairs"]["<n>x<m>"]`` for a pair of buffers
+    named there, else ``valid["n"][n]``, and ``valid["m"][m]`` or, for a
     target buffer not named there, ``valid["m"]["other"]``. Without
     ``valid`` every slot counts."""
     b, n, m, k = shape
     if not valid:
         return shape
+    pair = valid.get("pairs", {}).get(f"{n}x{m}")
+    if pair is not None:
+        return (b, pair[0], pair[1], k)
     sizes_m = valid.get("m", {})
     return (b, valid.get("n", {}).get(n, n), sizes_m.get(m, sizes_m.get("other", m)), k)
 

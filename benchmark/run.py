@@ -6,11 +6,14 @@ one cell.
 
 The cell's entry in ``BENCHMARK.json`` names its configuration
 (``benchmark/configs/<config>.json`` and its plain reference
-``<config>.py``) and its traffic mix (``benchmark/traffic/<mix>.json``,
-whose ``kind`` picks the feed that runs it); each per-layer metric has its reader in
-``benchmark/metrics/<metric>.py``. With ``--trace 0`` the result line
-holds the cell's end-to-end metrics, with ``--trace 1`` its per-layer
-metrics, read from a traced slice of the window.
+``<config>.py``) and its traffic mix (``benchmark/traffic/<mix>.json``);
+the mix's ``kind`` picks the feed that runs it (``benchmark/drive_<kind>.py``)
+and the reference's comparison (``check_<kind>`` of ``<config>.py``);
+each per-layer metric has its reader in ``benchmark/metrics/<metric>.py``.
+A cell of a new kind is new files and entries in ``BENCHMARK.json``. With
+``--trace 0`` the result line holds the cell's end-to-end metrics, with
+``--trace 1`` its per-layer metrics, read from a traced slice of the
+window.
 
 Set-up (``setup_s``) runs from the process's start to the window's: the
 imports, CUDA, loading or building the kernels, the scans made on the
@@ -50,9 +53,6 @@ os.environ["TRITON_CACHE_DIR"] = str(BENCH / "cache" / "triton")
 
 import common  # noqa: E402
 from common import BenchError  # noqa: E402
-
-FEEDS = {"localize": "drive_localize"}
-
 
 class Context:
     """What a feed gets: the cell's files, the arguments, the device, and
@@ -116,12 +116,12 @@ def _main(args) -> int:
     cell = common.workload(spec, args.workload)
     cfg = common.load_config(cell["config"])
     mix = common.load_traffic(cell["traffic"])
-    if mix["kind"] not in FEEDS:
-        raise BenchError(f"traffic kind {mix['kind']!r} has no feed")
+    feed = common.load_feed(mix["kind"])
     reference = common.load_reference(cell["config"])
-    import importlib
+    check = getattr(reference, f"check_{mix['kind']}", None)
+    if check is None:
+        raise BenchError(f"the reference of {cell['config']!r} has no check_{mix['kind']}")
     import torch
-    feed = importlib.import_module(FEEDS[mix["kind"]])
     if args.rehearse:
         device = torch.device("cpu")
     else:
@@ -147,7 +147,7 @@ def _main(args) -> int:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    checks, ref_info = _checks(reference, cfg, mix, args, out["state"], device)
+    checks, ref_info = _checks(check, feed.SAMPLE, cfg, mix, args, out["state"], device)
     ref_s = time.perf_counter() - t_ref
 
     e2e_names = [m["name"] for m in spec["end_to_end"] if common.applies(m, cell["name"], ())]
@@ -156,6 +156,8 @@ def _main(args) -> int:
     units = {m["name"]: m["unit"] for m in spec["end_to_end"] + spec["per_layer"]}
     metrics = {}
     sl = out["slice"]
+    if sl is not None:
+        sl.reduce()
     if args.trace:
         rctx = {"slice": sl}
         for m in spec["per_layer"]:
@@ -199,12 +201,14 @@ def _main(args) -> int:
     return 0
 
 
-def _checks(reference, cfg, mix, args, st, device):
+def _checks(check, sample_key, cfg, mix, args, st, device):
     """The reference's comparisons of this run, each with its limit, and
-    its readings for the information line."""
+    its readings for the information line: ``check`` judges a sample,
+    drawn from the seed, of the units the feed completed (``st["done"]``),
+    as many as the mix's ``sample_key`` says."""
     import traffic as traffic_mod
-    sample = traffic_mod.sample(args.seed, len(st["done"]), int(mix["sample_queries"]), 0x10C)
-    r = reference.check_localize(cfg, st, sample, device)
+    sample = traffic_mod.sample(args.seed, len(st["done"]), int(mix[sample_key]), 0x10C)
+    r = check(cfg, st, sample, device)
     info = {"reference_rows": r["rows"],
             "reference_readings": {k: v for k, v in r.items() if k != "rows"}}
     return [common.check(n, r[n], lim) for n, lim in cfg["limits"][mix["call"]].items()], info

@@ -49,8 +49,8 @@ def _sync() -> None:
 
 
 class Slice:
-    """Start and stop a traced slice; after :meth:`stop` the reduced
-    trace is in the attributes."""
+    """Start and stop a traced slice; after :meth:`stop` and
+    :meth:`reduce` the reduced trace is in the attributes."""
 
     def __init__(self, unit: str):
         self.unit = unit            # what a unit of work is, e.g. "query"
@@ -68,6 +68,7 @@ class Slice:
         self._prof = None
         self._range = None
         self._before = None
+        self._closed = None         # (profiler, end) of a slice not yet reduced
 
     @property
     def open(self) -> bool:
@@ -86,6 +87,8 @@ class Slice:
         self._ns0 = time.time_ns()
 
     def stop(self, units: int) -> None:
+        """Close the slice over ``units`` units. The trace is reduced later,
+        by :meth:`reduce`, so that closing the slice stalls nothing."""
         _sync()
         ns1 = time.time_ns()
         after = _counters()
@@ -94,7 +97,14 @@ class Slice:
         prof.__exit__(None, None, None)
         self.units = units
         self.shapes = {k: after[k] - self._before[k] for k in after}
-        self._reduce(prof.profiler.kineto_results.events(), self._ns0, ns1)
+        self._closed = (prof, ns1)
+
+    def reduce(self) -> None:
+        """Reduce the closed slice's trace (once)."""
+        if self._closed is not None:
+            prof, ns1 = self._closed
+            self._closed = None
+            self._reduce(prof.profiler.kineto_results.events(), self._ns0, ns1)
 
     def abort(self) -> None:
         """Leave the profiler if the slice is still open (an error path)."""

@@ -28,7 +28,7 @@ def _run(cell, seed, precision):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["loc-gated", "loc-track"])
+@pytest.mark.parametrize("cell", ["loc-gated", "loc-track", "odom-snake"])
 def test_control_is_not_correct(cell):
     import torch
     if not torch.cuda.is_available():

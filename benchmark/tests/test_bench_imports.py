@@ -1,5 +1,6 @@
 """A tiny run of a cell on the CPU (``--rehearse``) in its own process:
-its last line is the result object with the expected keys, and nothing
+its last line is the result object with the expected keys (the
+localizer's as they always were; the stream's whole path), and nothing
 it loaded has the top-level name of JAX or of the JAX package (the run
 itself refuses to print a result then; the sources are checked too)."""
 
@@ -23,7 +24,12 @@ def _run(*argv, timeout=900):
                           env=env)
 
 
-@pytest.mark.parametrize("cell,trace", [("loc-track", 0), ("loc-track", 1)])
+# the end-to-end metrics each cell reports with --trace 0
+E2E = {"loc-track": {"setup_s", "localize_p90_ms"},
+       "odom-snake": {"setup_s", "scans_per_s", "pose_latency_p90_ms"}}
+
+
+@pytest.mark.parametrize("cell,trace", [("loc-track", 0), ("loc-track", 1), ("odom-snake", 0)])
 def test_tiny_run_prints_the_result_last(cell, trace):
     proc = _run("--workload", cell, "--seed", str(2**31 + 5), "--seconds", "12",
                 "--trace", str(trace), "--rehearse")
@@ -38,7 +44,7 @@ def test_tiny_run_prints_the_result_last(cell, trace):
         assert {"busy_s", "window_s"} <= set(last["device"]) and "breakdown" in last
         assert set(last["metrics"]) <= {m["name"] for m in spec["per_layer"]}
     else:
-        assert set(last["metrics"]) == {"setup_s", "localize_p90_ms"}
+        assert set(last["metrics"]) == E2E[cell]
     for m in last["metrics"].values():
         assert m["value"] > 0 and m["unit"]
 
